@@ -7,8 +7,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port's main path from ``csrc/`` (into
-the ignored ``build/kernels/``), holds each kernel against its plain
-PyTorch version on the card, drives the main path —
+the ignored ``build/kernels/``; beside it, the same source once more with
+``-Xptxas -v`` for each instantiation's registers, shared memory and
+spills, and its SASS instruction counts), holds each kernel against its plain PyTorch version on the card
+(every onEqual/step-3 variant, both R routes, a throttle count past 65,535
+blocks of 32), drives the main path —
 ``KubeThrottler.pre_filter_batch`` over 100,000 bound pods, 10,000
 Throttles and 8 ClusterThrottles — and checks its verdicts against the
 host oracle. One line per phase; then one ``{"kernels": [...]}`` JSON
@@ -18,16 +21,20 @@ line, the card's ``nvidia-smi`` name and power limit, and as the last line
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
-Everything runs in this one process (plus ``nvidia-smi`` and ``nvcc``).
+Everything runs in this one process (plus ``nvidia-smi``, two ``nvcc``
+processes started together, and ``cuobjdump`` for the instruction counts).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -41,8 +48,21 @@ SEED = 0
 N_PODS, N_THROTTLES, GROUPS, N_CLUSTER = 100_000, 10_000, 500, 8
 N_CALLS = 5
 ORACLE_SAMPLE = 2_000
-# kernel-vs-plain shapes (P, T, R): ragged, the main path's dense shape, wide
-COMPARE_SHAPES = ((37, 19, 3), (131072, 16, 8), (8192, 10240, 8))
+# kernel-vs-plain shapes (P, T, R): ragged, the main path's dense shape,
+# wide, the widest register route (R = 16), the shared-memory route (R = 20)
+COMPARE_SHAPES = ((37, 19, 3), (131072, 16, 8), (8192, 10240, 8), (8192, 300, 16),
+                  (8192, 300, 20))
+# every (on_equal, step3_on_equal) pair: one kernel instantiation each
+VARIANTS = ((False, True), (True, True), (False, False), (True, False))
+# more throttle columns than a grid.y of 65,535 tiles of 32 could hold
+WIDE_T_SHAPE = (4, 2_200_000, 8)
+# the three variants of the kernel's geometry timed against each other:
+# (label, _launch_shape keywords); the first is the wrapper's default
+DESIGN_VARIANTS = (
+    ("bt64", {}),
+    ("bt256", {"bt_max": 256}),
+    ("bt256_long_strips", {"bt_max": 256, "target_blocks": 132 * 8}),
+)
 # the bench's dense-sweep shape (bench.py bench_pallas_sweep), timed only
 SWEEP_SHAPE = (131072, 10240, 8)
 EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
@@ -142,14 +162,16 @@ def extremes_inputs(device):
 # --------------------------------------------------------------- measures
 
 
-def compare(pre, pods, mask, on_equal: bool, step3: bool):
+def compare(pre, pods, mask, on_equal: bool, step3: bool, got=None):
     """(mismatching cells, max |kernel - plain|, per-status counts) of the
-    kernel against its plain version on the same device tensors."""
+    kernel (``got``, else a ``check_dense`` call) against its plain version
+    on the same device tensors."""
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
 
-    got = cd.check_dense(pre, pods, mask, on_equal=on_equal, step3_on_equal=step3)
+    if got is None:
+        got = cd.check_dense(pre, pods, mask, on_equal=on_equal, step3_on_equal=step3)
     want = cd.check_dense_reference(pre, pods, mask, on_equal, step3)
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     counts = torch.bincount((want.flatten().to(torch.int64) + 1), minlength=5).tolist()
@@ -186,20 +208,29 @@ def cuda_ms(fn, iters: int, flush_bytes: int = 0) -> float:
     return total / iters
 
 
-def kernel_only_ms(lib, pre, pods, mask, on_equal, step3, iters, flush_bytes=0) -> float:
-    """Device time of the bare ``kt_check_dense`` launch, its variant
-    planes prepared once outside the timed region (the wrapper's torch
-    prep ops are what ``check_dense`` adds on top)."""
+def bare_launch(lib, pre, pods, mask, on_equal, step3, shape=None):
+    """(launch, out): a closure that makes the bare ``kt_check_dense`` call
+    with its arguments built once (geometry ``shape``, else the wrapper's),
+    and the output it writes. Launches of it are not counted."""
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
 
+    P, R = pods.req.shape
     out = torch.empty(mask.shape, dtype=torch.int8, device=mask.device)
-    planes, args = cd.kernel_args(pre, pods, mask, out, on_equal, step3)
+    shape = shape or cd._launch_shape(P, mask.shape[1], R)
+    args = cd.launch_args(pre, pods, mask, out, on_equal, step3, shape)
     check(lib.kt_check_dense(*args) == 0, "bare kt_check_dense launch failed")
-    ms = cuda_ms(lambda: lib.kt_check_dense(*args), iters, flush_bytes)
-    del planes
-    return ms
+    return (lambda: lib.kt_check_dense(*args)), out
+
+
+def kernel_only_ms(lib, pre, pods, mask, on_equal, step3, iters, flush_bytes=0,
+                   shape=None) -> float:
+    """Device time of the bare ``kt_check_dense`` call, its arguments built
+    once outside the timed region (what ``check_dense`` adds on top is its
+    operand checks and the output's allocation)."""
+    launch, _ = bare_launch(lib, pre, pods, mask, on_equal, step3, shape)
+    return cuda_ms(launch, iters, flush_bytes)
 
 
 def dense_bound(pre, pods, mask, chunk: int = 16384):
@@ -236,6 +267,90 @@ def dense_bound(pre, pods, mask, chunk: int = 16384):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "ops_ms": t_ops, "int32_ops": ops,
     }
+
+
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on the kernel's source with the loader's
+    flags, into a scratch library under ``build/kernels/``; returns
+    (process, scratch path)."""
+    from kube_throttler_tpu_torch import kernels
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernels.BUILD_DIR / f"ptxas-report-{os.getpid()}.so"
+    cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+           str(kernels.CSRC / "check_dense.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_ptxas_report(proc, out):
+    """[{kernel, registers, static_smem, stack, spill_stores, spill_loads}]
+    for each kernel instantiation in ptxas' report."""
+    text, _ = proc.communicate(timeout=600)
+    out.unlink(missing_ok=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{text[-2000:]}")
+    info, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            current = info.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current.update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            current.update(registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
+    rows = [{"kernel": instantiation(m), **f} for m, f in info.items()
+            if instantiation(m) and "registers" in f]
+    check(len(rows) == 12, f"ptxas reported {len(rows)} of 12 kernel instantiations")
+    return sorted(rows, key=lambda r: r["kernel"])
+
+
+def instantiation(mangled: str):
+    """``reg<on_equal=0,step3_on_equal=1,RB=8>`` for a kernel's mangled
+    name, None for any other symbol."""
+    k = re.search(r"check_dense_(reg|smem)ILb([01])ELb([01])E(?:Li(\d+)E)?", mangled)
+    if k is None:
+        return None
+    route, oe, s3, rb = k.groups()
+    return f"{route}<on_equal={oe},step3_on_equal={s3}" + (f",RB={rb}>" if rb else ">")
+
+
+def sass_counts(library: str):
+    """{instantiation: {sass_instructions, sass_ldg, sass_bra, sass_loop}}
+    from ``cuobjdump -sass`` of the loaded library (NOPs left out;
+    ``sass_loop`` is the longest backward branch's span in instructions:
+    one step of the pod-strip loop); {} where the toolkit has no
+    ``cuobjdump``."""
+    from kube_throttler_tpu_torch import kernels
+
+    tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    proc = subprocess.run([str(tool), "-sass", library], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = counts.setdefault(instantiation(m.group(1)) or m.group(1), Counter())
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)\s*(\S*)",
+                      line)
+        if m and current is not None and m.group(2) != "NOP":
+            addr, op, target = int(m.group(1), 16), m.group(2), m.group(4).rstrip(";")
+            current["sass_instructions"] += 1
+            current["sass_ldg"] += op == "LDG"
+            current["sass_bra"] += op == "BRA"
+            if op == "BRA" and target.startswith("0x") and int(target, 16) < addr:
+                span = (addr - int(target, 16)) // 16 + 1
+                current["sass_loop"] = max(current["sass_loop"], span)
+    return {k: dict(v) for k, v in counts.items()}
 
 
 # --------------------------------------------------------------- main path
@@ -413,6 +528,7 @@ def run() -> int:
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops.check import statuses_to_compact
     from kube_throttler_tpu_torch.ops.fastcheck import precompute_check_state
     from kube_throttler_tpu_torch.ops.schema import (
         pod_batch_from_arrays,
@@ -424,25 +540,37 @@ def run() -> int:
         python=sys.version.split()[0], devices=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = cd.load_library()
-    say("build", kernel="check_dense", seconds=f"{time.perf_counter() - t0:.2f}", library=lib._name)
+    ptxas = start_ptxas_report()  # a second nvcc, beside the loader's build
+    try:
+        lib = cd.load_library()
+        say("build", kernel="check_dense", seconds=f"{time.perf_counter() - t0:.2f}",
+            library=lib._name)
+        ptxas_rows = finish_ptxas_report(*ptxas)
+    finally:
+        if ptxas[0].poll() is None:
+            ptxas[0].kill()
+            ptxas[0].wait()
+    sass = sass_counts(lib._name)
+    for row in ptxas_rows:
+        row.update(sass.get(row["kernel"], {}))
+    say("ptxas", seconds=f"{time.perf_counter() - t0:.2f}", kernels=json.dumps(ptxas_rows))
 
-    # -- kernel against its plain version, both kinds × both on_equal
+    # -- kernel against its plain version: every variant at every shape
     max_err = mismatches = 0
     rng = np.random.default_rng(SEED)
     cases = [("extremes", extremes_inputs("cuda"))]
-    for P, T, R in COMPARE_SHAPES:
+    for P, T, R in COMPARE_SHAPES + (WIDE_T_SHAPE,):
         cases.append((f"{P}x{T}x{R}", device_inputs(*synth_arrays(rng, P, T, R), "cuda")))
     for label, (pre, pods, mask) in cases:
-        for kind in ("throttle", "clusterthrottle"):
-            for on_equal in (False, True):
-                step3 = True if kind == "throttle" else on_equal
-                bad, err, counts = compare(pre, pods, mask, on_equal, step3)
-                max_err, mismatches = max(max_err, err), mismatches + bad
-                say("compare", shape=label, kind=kind, on_equal=on_equal,
-                    mismatches=bad, status_counts=counts)
-                check(bad == 0, f"check_dense disagrees with its plain version at {label}")
+        geometry = cd._launch_shape(*mask.shape, pods.req.shape[1])
+        for on_equal, step3 in VARIANTS:
+            bad, err, counts = compare(pre, pods, mask, on_equal, step3)
+            max_err, mismatches = max(max_err, err), mismatches + bad
+            say("compare", shape=label, on_equal=on_equal, step3_on_equal=step3,
+                mismatches=bad, status_counts=counts, geometry=json.dumps(geometry._asdict()))
+            check(bad == 0, f"check_dense disagrees with its plain version at {label}")
     del cases
+    torch.cuda.empty_cache()
 
     # -- the full-width main path
     t0 = time.perf_counter()
@@ -497,6 +625,16 @@ def run() -> int:
         kernel_only_ms=f"{launch_ms:.5f}", plain_ms=f"{p_ms:.5f}",
         bound_ms=f"{bound['bound_ms']:.5f}", bound_by=bound["bound_by"],
         bytes_ms=f"{bound['bytes_ms']:.5f}", ops_ms=f"{bound['ops_ms']:.5f}", l2="flushed")
+    # the ClusterThrottle kind's whole dense route as _dispatch_batch_check
+    # runs it, and its parts beside the kernel
+    pre_ms = cuda_ms(lambda: precompute_check_state(state), 50, flush)
+    statuses = cd.check_dense(pre, pods, mask, False, False)
+    compact_ms = cuda_ms(lambda: statuses_to_compact(statuses), 50, flush)
+    route_ms = cuda_ms(lambda: statuses_to_compact(cd.check_dense(
+        precompute_check_state(state), pods, mask, False, False)), 50, flush)
+    say("time", route="clusterthrottle-dense", shape=f"{P}x{T}x{R}",
+        route_ms=f"{route_ms:.5f}", precompute_check_state_ms=f"{pre_ms:.5f}",
+        check_dense_ms=f"{k_ms:.5f}", statuses_to_compact_ms=f"{compact_ms:.5f}", l2="flushed")
 
     # the dense sweep: a real [T,R] state, P pod rows, a random mask made
     # on the card (1.3 G cells)
@@ -516,6 +654,31 @@ def run() -> int:
         bound_by=s_bound["bound_by"], bytes_ms=f"{s_bound['bytes_ms']:.4f}",
         ops_ms=f"{s_bound['ops_ms']:.4f}", l2="exceeded")
 
+    # -- the design's variants, bare, at both timed shapes; each is first
+    # held against the plain version at the main path's state and at a
+    # wide shape
+    w_pre, w_pods, w_mask = device_inputs(*synth_arrays(rng, 8192, ST, SR), "cuda")
+    variants = []
+    for label, knobs in DESIGN_VARIANTS:
+        for args in ((pre, pods, mask, False, False), (w_pre, w_pods, w_mask, False, True)):
+            shape = cd._launch_shape(*args[2].shape, args[1].req.shape[1], **knobs)
+            _, out = bare_launch(lib, *args, shape=shape)
+            bad, _, _ = compare(*args, got=out)
+            check(bad == 0, f"variant {label} disagrees with its plain version")
+        main_shape = cd._launch_shape(P, T, R, **knobs)
+        sweep_shape = cd._launch_shape(SP, ST, SR, **knobs)
+        v = {
+            "variant": label, "knobs": knobs,
+            "main_ms": kernel_only_ms(lib, pre, pods, mask, False, False, 50, flush,
+                                      shape=main_shape),
+            "sweep_ms": kernel_only_ms(lib, s_pre, s_pods, s_mask, False, True, 10,
+                                       shape=sweep_shape),
+            "main_geometry": main_shape._asdict(),
+            "sweep_geometry": sweep_shape._asdict(),
+        }
+        variants.append(v)
+        say("variant", **{k: json.dumps(x) if isinstance(x, dict) else x for k, x in v.items()})
+
     kernels = {"kernels": [{
         "name": "check_dense",
         "route": "cuda",
@@ -533,8 +696,11 @@ def run() -> int:
         "kernel_only_ms": launch_ms,
         "bytes_ms": bound["bytes_ms"],
         "ops_ms": bound["ops_ms"],
+        "dense_route_ms": route_ms,
         "sweep": {"shape": list(SWEEP_SHAPE), "ms": s_ms, "kernel_only_ms": s_launch_ms,
                   **s_bound},
+        "variants": variants,
+        "ptxas": ptxas_rows,
     }]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -30,8 +30,11 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# ``_lock`` guards the two dicts only; a build runs under its own name's
+# lock, so one kernel's ``nvcc`` never stalls the load of another
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_name_locks: Dict[str, threading.Lock] = {}
 
 
 def nvcc_path() -> str:
@@ -79,10 +82,18 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed. Idempotent and thread-safe."""
+    needed. Idempotent and thread-safe: concurrent loads of one name build
+    once, and loads of different names build concurrently."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+            with _lock:
+                _libs[name] = lib
         return lib

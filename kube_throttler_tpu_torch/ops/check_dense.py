@@ -18,16 +18,19 @@ the residual-form ``CheckPrecomp`` of ``ops/fastcheck.py``, for every
   breaker (``DeviceStateManager.guarded``) re-raises it, so a kernel that
   does not run never sends the batch to the host oracle.
 
-The wrapper resolves the onEqual/step-3 variants into per-throttle bit
-planes with torch ops before the launch, as ``pallas_check.py:160-184``
-does, so the kernel carries only the step-4 strictness as a template flag.
-Unlike the TPU kernel it takes any P and T (the ragged edge is masked in
-the kernel) and keeps every int64 whole (Hopper compares s64 natively).
+The kernel reads the ``CheckPrecomp`` planes as they are and selects the
+onEqual/step-3 variants itself (two template flags), so on CUDA tensors
+the wrapper enqueues the output's ``torch.empty`` and one launch, nothing
+else. :func:`_launch_shape` chooses the launch geometry in Python, where
+the CPU tests hold it within CUDA's limits. Unlike the TPU kernel it takes
+any P and T (the ragged edge is masked in the kernel) and keeps every
+int64 whole (Hopper compares s64 natively).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -37,11 +40,65 @@ from .schema import PodBatch
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
 
-# tflag / tvec bit layout shared with csrc/check_dense.cu
-_THR_PRESENT, _ST_OR_SAT = 1, 2
-_TV_EXCEEDS_CNT, _TV_ST_OR_SAT, _TV_OVER_CNT, _TV_VALID = 1, 2, 4, 8
-
 _INT32_MAX = 2**31 - 1
+_GRID_Y_MAX = 65535
+_THREADS = 256  # threads per block; csrc/check_dense.cu's __launch_bounds__
+_UNROLL = 4  # pod rows per thread per loop step (kUnroll in the kernel)
+_SMEM_MAX = 232448  # dynamic shared memory one block may use on Hopper
+_SMEM_PER_DIM = 8 + 8 + 1  # threshold, residual, flag byte per (dim, throttle)
+#: blocks the grid aims at: 4 waves if each of the 132 SMs held 8 blocks
+#: (at the 2 blocks per SM the R <= 8 route's registers allow, 16 waves)
+TARGET_BLOCKS = 4 * 132 * 8
+#: widest throttle tile; the fastest of the widths timed on the card
+#: (PERF.md §6: 64 lanes against 256 at the dense sweep)
+BT_MAX = 64
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class LaunchShape(NamedTuple):
+    """One launch of ``kt_check_dense``: ``block`` (throttle lanes, pod
+    lanes), ``grid`` (throttle tiles, pod strips), ``strip`` pod rows per
+    block, ``rbucket`` the R route (8 or 16: the throttle column in
+    registers; 0: in shared memory) and ``smem`` its dynamic shared bytes."""
+
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+    strip: int
+    rbucket: int
+    smem: int
+
+
+def _launch_shape(P: int, T: int, R: int, *, target_blocks: int = TARGET_BLOCKS,
+                  bt_max: int = BT_MAX) -> LaunchShape:
+    """The launch geometry for a [P,T] mask over R dims (P, T >= 1).
+
+    256 threads per block, one throttle column each: BT lanes wide (the
+    smallest power of two >= T, within [16, ``bt_max``], halved while the
+    shared-memory route's [R][BT] planes would not fit) and 256 / BT pod
+    rows tall. Throttle tiles go on ``grid.x`` (up to 2^31 - 1), pod strips
+    on ``grid.y`` (at most 65,535); the strip is a whole number of unrolled
+    steps, long enough that the grid holds about ``target_blocks``."""
+    bt = 16
+    while bt < T and bt < bt_max:
+        bt *= 2
+    rbucket = 8 if R <= 8 else 16 if R <= 16 else 0
+    smem = 0
+    if rbucket == 0:
+        while bt > 1 and bt * R * _SMEM_PER_DIM > _SMEM_MAX:
+            bt //= 2
+        smem = bt * R * _SMEM_PER_DIM
+        if smem > _SMEM_MAX:
+            raise ValueError(f"R={R} dims exceed the kernel's shared-memory route")
+    by = _THREADS // bt
+    gx = _ceil_div(T, bt)
+    step = by * _UNROLL
+    gy = max(1, min(_GRID_Y_MAX, _ceil_div(target_blocks, gx), _ceil_div(P, step)))
+    strip = min(_ceil_div(_ceil_div(P, gy), step) * step, P)
+    gy = _ceil_div(P, strip)
+    return LaunchShape((bt, by), (gx, gy), strip, rbucket, smem)
 
 
 class KernelLaunchError(RuntimeError):
@@ -64,7 +121,7 @@ def load_library() -> ctypes.CDLL:
     lib = load("check_dense")
     fn = lib.kt_check_dense
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -78,13 +135,6 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> N
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def _block_shape(T: int):
-    """(throttles, pods) per block: 16 throttle lanes when T fits in 16
-    (the common small-kind case), else a full warp of 32; 512 threads."""
-    bt = 16 if T <= 16 else 32
-    return bt, 512 // bt
 
 
 def check_dense(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor,
@@ -114,11 +164,12 @@ def check_dense(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor,
     if max(P, T, R) > _INT32_MAX:
         raise ValueError(f"shape ({P},{T},{R}) exceeds the kernel's int32 extents")
 
-    out = torch.empty((P, T), dtype=torch.int8, device=device)
     if P == 0 or T == 0:
-        return out
+        return torch.empty((P, T), dtype=torch.int8, device=device)
+    shape = _launch_shape(P, T, R)
     lib = load_library()
-    _planes, args = kernel_args(pre, pods, mask, out, on_equal, step3_on_equal)
+    out = torch.empty((P, T), dtype=torch.int8, device=device)
+    args = launch_args(pre, pods, mask, out, on_equal, step3_on_equal, shape)
     with torch.cuda.device(device):
         err = lib.kt_check_dense(*args)
     if err != 0:
@@ -127,35 +178,22 @@ def check_dense(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor,
     return out
 
 
-def kernel_args(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor, out: torch.Tensor,
-                on_equal: bool, step3_on_equal: bool):
-    """(planes, args): the C arguments of ``kt_check_dense`` for validated
-    tensors, with the onEqual/step-3 variants resolved into the per-dim
-    flag plane and the per-throttle ``tvec`` bits by torch ops on the
-    tensors' device. ``planes`` holds those temporaries; keep it alive
-    until the launch is enqueued."""
+def launch_args(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor, out: torch.Tensor,
+                on_equal: bool, step3_on_equal: bool, shape: LaunchShape):
+    """The C arguments of ``kt_check_dense`` for validated tensors: their
+    pointers, the extents, the variant flags, the geometry and the current
+    stream. Builds no tensor and enqueues nothing."""
     P, R = pods.req.shape
     T = mask.shape[1]
-    pod_nz = (pods.req_present & (pods.req != 0)).to(torch.uint8)
-    sat_req = pre.sat_req_ge if step3_on_equal else pre.sat_req_gt
-    tflag = (
-        pre.thr_req_present.to(torch.uint8) * _THR_PRESENT
-        + (pre.st_req | sat_req).to(torch.uint8) * _ST_OR_SAT
+    planes = (
+        pods.req, pods.req_present, pods.valid,
+        pre.thr_req, pre.resid, pre.thr_req_present, pre.st_req, pre.sat_req_ge, pre.sat_req_gt,
+        pre.valid, pre.exceeds_cnt, pre.st_cnt, pre.sat_cnt_ge, pre.sat_cnt_gt,
+        pre.over_cnt_ge, pre.over_cnt_gt, mask, out,
     )
-    sat_cnt = pre.sat_cnt_ge if step3_on_equal else pre.sat_cnt_gt
-    over_cnt = pre.over_cnt_ge if on_equal else pre.over_cnt_gt
-    tvec = (
-        pre.exceeds_cnt.to(torch.uint8) * _TV_EXCEEDS_CNT
-        + (pre.st_cnt | sat_cnt).to(torch.uint8) * _TV_ST_OR_SAT
-        + over_cnt.to(torch.uint8) * _TV_OVER_CNT
-        + pre.valid.to(torch.uint8) * _TV_VALID
+    return (
+        *(t.data_ptr() for t in planes),
+        P, T, R, int(on_equal), int(step3_on_equal),
+        *shape.block, *shape.grid, shape.strip, shape.rbucket, shape.smem,
+        torch.cuda.current_stream(mask.device).cuda_stream,
     )
-    bt, bp = _block_shape(T)
-    stream = torch.cuda.current_stream(mask.device).cuda_stream
-    args = (
-        pods.req.data_ptr(), pod_nz.data_ptr(), pods.valid.data_ptr(),
-        pre.thr_req.data_ptr(), pre.resid.data_ptr(), tflag.data_ptr(),
-        tvec.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        P, T, R, int(on_equal), bt, bp, stream,
-    )
-    return (pod_nz, tflag, tvec), args

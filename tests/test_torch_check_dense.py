@@ -40,9 +40,7 @@ def _carry(jpre, jpods, device="cpu"):
     )
 
 
-@pytest.mark.parametrize("kind", ["throttle", "clusterthrottle"])
-@pytest.mark.parametrize("on_equal", [False, True])
-def test_matches_pallas_interpret(kind, on_equal):
+def _check_against_pallas(kind, on_equal, step3):
     """The grid of test_pallas_check.test_pallas_matches_direct: one
     (BP, BT) block with a random FULL mask, bits over padded pod and
     throttle rows included."""
@@ -52,7 +50,6 @@ def test_matches_pallas_interpret(kind, on_equal):
     state = encode_throttle_state(throttles, dims, reserved=reserved, capacity=BT)
     batch = encode_pods(pods, dims, capacity=BP)
     mask = np.asarray(rng.choices([True, False], k=BP * BT)).reshape(BP, BT)
-    step3 = True if kind == "throttle" else on_equal
     jpre = precompute_check_state(state)
     want = pallas_check_pods(
         jpre, batch, mask, on_equal=on_equal, step3_on_equal=step3, interpret=True
@@ -63,6 +60,21 @@ def test_matches_pallas_interpret(kind, on_equal):
                          step3_on_equal=step3)
     _assert_same(got, want)
     assert cd.launches == launches  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("kind", ["throttle", "clusterthrottle"])
+@pytest.mark.parametrize("on_equal", [False, True])
+def test_matches_pallas_interpret(kind, on_equal):
+    _check_against_pallas(kind, on_equal, True if kind == "throttle" else on_equal)
+
+
+@pytest.mark.parametrize("kind", ["throttle", "clusterthrottle"])
+def test_matches_pallas_interpret_strict_step3(kind):
+    """The fourth variant, on_equal=True with step3_on_equal=False, which
+    no served kind takes but the kernel instantiates: with the three
+    above, every (on_equal, step3_on_equal) pair has a Pallas-held plain
+    version."""
+    _check_against_pallas(kind, True, False)
 
 
 @pytest.mark.parametrize("kind", ["throttle", "clusterthrottle"])

@@ -4,8 +4,12 @@ not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-- the dense CUDA kernel ≡ its plain version (ragged shapes, both kinds ×
-  both onEqual, the int64 extremes), each launch counted once;
+- the dense CUDA kernel ≡ its plain version (ragged shapes, all four
+  (onEqual, step-3 onEqual) variants, both R routes of the kernel: the
+  throttle column in registers up to R = 16, in shared memory past it;
+  the int64 extremes), each launch counted once;
+- ``check_dense`` enqueues the output's ``torch.empty`` and nothing else
+  besides its one launch;
 - a launch the card refuses raises ``KernelLaunchError``;
 - the main path on ``device="cuda"`` ≡ the same stack on ``device="cpu"``
   (``pre_filter_batch`` verdicts and routes), with the kernel launched.
@@ -73,15 +77,19 @@ def _extremes_case(device):
     return pre, pods, torch.ones((n, n), dtype=torch.bool, device=device)
 
 
+VARIANTS = [(False, True), (True, True), (False, False), (True, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["throttle", "clusterthrottle"])
-@pytest.mark.parametrize("on_equal", [False, True])
-def test_kernel_matches_plain(card, kind, on_equal):
+@pytest.mark.parametrize("on_equal,step3", VARIANTS)
+def test_kernel_matches_plain(card, on_equal, step3):
+    """Ragged shapes; R = 16 is the widest register route, R = 20 and
+    R = 100 take the shared-memory route (R = 100 on a narrowed tile past
+    48 KB of shared memory)."""
     rng = np.random.default_rng(1)
-    step3 = True if kind == "throttle" else on_equal
-    cases = [_extremes_case(card)] + [
-        _random_case(rng, P, T, R, card) for P, T, R in ((37, 19, 3), (1, 33, 8), (300, 700, 8))
-    ]
+    shapes = ((37, 19, 3), (1, 33, 8), (300, 700, 8), (300, 70, 16), (300, 700, 20),
+              (64, 300, 100))
+    cases = [_extremes_case(card)] + [_random_case(rng, P, T, R, card) for P, T, R in shapes]
     for pre, pods, mask in cases:
         before = cd.launches
         got = cd.check_dense(pre, pods, mask, on_equal=on_equal, step3_on_equal=step3)
@@ -89,6 +97,31 @@ def test_kernel_matches_plain(card, kind, on_equal):
         assert cd.launches == before + 1
         want = cd.check_dense_reference(pre, pods, mask, on_equal, step3)
         assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_check_dense_enqueues_one_kernel(card):
+    """Besides its launch, the wrapper runs no torch op on the card but the
+    output's allocation: the variant selection happens in the kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    pre, pods, mask = _random_case(np.random.default_rng(3), 300, 16, 8, card)
+    cd.check_dense(pre, pods, mask)  # build and load outside the record
+    before = cd.launches
+    with Record() as rec:
+        got = cd.check_dense(pre, pods, mask, on_equal=True, step3_on_equal=False)
+    assert rec.ops == ["aten.empty.memory_format"]
+    assert cd.launches == before + 1
+    assert torch.equal(got, cd.check_dense_reference(pre, pods, mask, True, False))
 
 
 @pytest.mark.cuda
@@ -104,10 +137,11 @@ def test_kernel_rejects_bad_operands(card):
 
 @pytest.mark.cuda
 def test_kernel_launch_failure_raises(card, monkeypatch):
-    """A launch the card refuses (2048 threads per block) raises
-    KernelLaunchError and counts no launch."""
+    """A launch the card refuses (2048 threads per block, through the
+    geometry hook) raises KernelLaunchError and counts no launch."""
     pre, pods, mask = _random_case(np.random.default_rng(4), 64, 40, 2, card)
-    monkeypatch.setattr(cd, "_block_shape", lambda T: (32, 64))
+    monkeypatch.setattr(cd, "_launch_shape",
+                        lambda P, T, R: cd.LaunchShape((32, 64), (2, 1), 64, 8, 0))
     before = cd.launches
     with pytest.raises(cd.KernelLaunchError, match="cudaError"):
         cd.check_dense(pre, pods, mask)
