@@ -14,9 +14,13 @@ spills, and its SASS instruction counts), holds each kernel against its plain Py
 blocks of 32), drives the main path —
 ``KubeThrottler.pre_filter_batch`` over 100,000 bound pods, 10,000
 Throttles and 8 ClusterThrottles — and checks its verdicts against the
-host oracle. One line per phase; then one ``{"kernels": [...]}`` JSON
-line, the card's ``nvidia-smi`` name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.
+host oracle. Then it drives the reconcile tick, ``full_tick_sharded`` on
+a 1×1 grid, over the same cluster: its verdicts must equal
+``pre_filter_batch``'s and its used counts the written statuses, before
+and after 1,000 Throttles gain override windows, and a dense tick at full
+width must equal the sparse one. One line per phase; then one
+``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
@@ -47,6 +51,9 @@ SEED = 0
 # 500 label groups) plus 8 ClusterThrottles, each selecting every 8th group
 N_PODS, N_THROTTLES, GROUPS, N_CLUSTER = 100_000, 10_000, 500, 8
 N_CALLS = 5
+N_TICKS = 5
+# the tick's phases (plugin tracer), printed per call
+TICK_PHASES = ("full_tick", "tick_snapshot", "tick_encode", "tick_device")
 ORACLE_SAMPLE = 2_000
 # kernel-vs-plain shapes (P, T, R): ragged, the main path's dense shape,
 # wide, the widest register route (R = 16), the shared-memory route (R = 20)
@@ -465,8 +472,7 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         prewarm_dispatches=n_warm, prewarm_s=f"{t_warm:.3f}", gc_frozen=frozen)
 
     def split(phase):
-        snap = plugin.tracer.snapshot(phase)
-        return (snap["sum"], snap["count"]) if snap else (0.0, 0)
+        return phase_total(plugin, phase)
 
     per_call, routes, out = [], [], None
     cd.launches = 0
@@ -508,8 +514,194 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         shapes=shapes, per_call=per_call, routes=routes, launches=launches,
         breaker=dm.breaker_state(), n_verdicts=len(out["schedulable"]),
         errors=len(out["errors"]), oracle_n=len(probe), oracle_mismatches=mismatches,
-        tally=tally, cluster_tally=cl_tally,
+        tally=tally, cluster_tally=cl_tally, verdicts=out["schedulable"],
     )
+
+
+def phase_total(plugin, phase):
+    """(seconds, count) the plugin's tracer has summed for ``phase``."""
+    snap = plugin.tracer.snapshot(phase)
+    return (snap["sum"], snap["count"]) if snap else (0.0, 0)
+
+
+def written_used(store):
+    """{kind: {throttle key: written status.used pod count}}."""
+    return {
+        kind: {t.key: t.status.used.resource_counts or 0 for t in lister()}
+        for kind, lister in (("throttle", store.list_throttles),
+                             ("clusterthrottle", store.list_cluster_throttles))
+    }
+
+
+def tick_once(plugin, label: str, verdicts):
+    """One ``plugin.full_tick_sharded(1)``, its phase split, check_dense
+    launches and peak device memory on a line; fails unless it ran on the
+    1×1 grid, launched the kernel, agrees with ``verdicts`` for every pod
+    and with the written used counts of every throttle."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops import check_dense as cd
+
+    before = {ph: phase_total(plugin, ph)[0] for ph in TICK_PHASES}
+    l0 = cd.launches
+    torch.cuda.reset_peak_memory_stats()
+    out = plugin.full_tick_sharded(1)
+    launched = cd.launches - l0
+    peak = torch.cuda.max_memory_allocated()
+    split = {f"{ph}_ms": f"{(phase_total(plugin, ph)[0] - before[ph]) * 1e3:.3f}"
+             for ph in TICK_PHASES}
+    routes = plugin.device_manager.last_tick
+    say("tick", call=label, **split, check_dense_launches=launched,
+        mesh=json.dumps(out["mesh"]), max_memory_allocated=peak,
+        routes=json.dumps(routes, sort_keys=True))
+    check(out["mesh"] == [1, 1], f"tick {label} ran on mesh {out['mesh']}")
+    check(launched >= 1, f"check_dense was not launched in tick {label}")
+    check(routes["throttle"]["route"] == "sparse" and routes["clusterthrottle"]["route"] == "dense",
+          f"unexpected tick routes {routes}")
+    check(out["errors"] == [] and len(out["schedulable"]) == N_PODS, "tick verdicts missing")
+    check(out["schedulable"] == verdicts, f"tick {label} disagrees with pre_filter_batch")
+    check(out["used"] == written_used(plugin.store),
+          f"tick {label} used disagrees with the written statuses")
+    return out, launched
+
+
+def edit_overrides(plugin, every: int = 10, offset: int = 3):
+    """Every ``every``-th Throttle (t3, t13, ...: groups that no
+    Throttle's own threshold blocks, unlike t0's) gains two
+    temporaryThresholdOverrides: an expired window (roomy), then a window
+    active now whose pod count of 1 throttles any group with a running
+    pod. Returns the count edited."""
+    from dataclasses import replace
+    from datetime import datetime, timedelta, timezone
+
+    from kube_throttler_tpu_torch.api.types import ResourceAmount, TemporaryThresholdOverride
+
+    now = datetime.now(timezone.utc)
+    rfc = lambda dt: dt.strftime("%Y-%m-%dT%H:%M:%SZ")  # noqa: E731
+    windows = (
+        TemporaryThresholdOverride(begin=rfc(now - timedelta(hours=3)),
+                                   end=rfc(now - timedelta(hours=2)),
+                                   threshold=ResourceAmount.of(pod=10**6)),
+        TemporaryThresholdOverride(begin=rfc(now - timedelta(hours=1)),
+                                   end=rfc(now + timedelta(hours=1)),
+                                   threshold=ResourceAmount.of(pod=1)),
+    )
+    store = plugin.store
+    edited = 0
+    for thr in store.list_throttles():
+        if int(thr.name[1:]) % every == offset:
+            store.update_throttle_spec(
+                replace(thr, spec=replace(thr.spec, temporary_threshold_overrides=windows))
+            )
+            edited += 1
+    return edited
+
+
+def drive_tick(plugin, verdicts, calls: int):
+    """The reconcile tick over the main path's cluster: ``calls`` ticks
+    with the kernel count zeroed just before and read just after, the
+    override edit and a tick after it, and one dense tick at full width
+    against a sparse one. Returns the numbers the kernels line reports."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.parallel import make_mesh
+
+    dm = plugin.device_manager
+    cd.launches = 0
+    for i in range(calls):
+        tick_once(plugin, str(i), verdicts)
+    launches = cd.launches
+
+    t0 = time.perf_counter()
+    edited = edit_overrides(plugin)
+    n_rec = plugin.run_pending_once()
+    t_edit = time.perf_counter() - t0
+    after = plugin.pre_filter_batch()["schedulable"]
+    changed = sum(after[k] != v for k, v in verdicts.items())
+    tick, _ = tick_once(plugin, "after-overrides", after)
+    overrides = dm.last_tick["throttle"]["overrides"]
+    say("tick-overrides", throttles_edited=edited, reconciled=n_rec,
+        edit_and_reconcile_s=f"{t_edit:.3f}", verdicts_changed=changed,
+        schedulable=sum(after.values()), override_capacity=overrides)
+    check(edited == N_THROTTLES // 10, f"{edited} Throttles edited")
+    check(changed >= 1, "the override edit changed no verdict")
+    check(overrides >= 2, f"the tick encoded O = {overrides} overrides")
+
+    grid = make_mesh(device=dm.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    l0 = cd.launches
+    t0 = time.perf_counter()
+    dense = dm.full_tick_sharded(grid, dense_mesh=True)
+    t_dense = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated()
+    dense_launches = cd.launches - l0
+    dense_routes = dm.last_tick
+    sparse = dm.full_tick_sharded(grid)
+    same = all(
+        np.array_equal(dense[k][i], sparse[k][i]) for k in sparse for i in (0, 1, 3, 4)
+    ) and all(dense[k][2] == sparse[k][2] and dense[k][5] == sparse[k][5] for k in sparse)
+    shapes = {k: list(dense[k][0].shape[:1]) + list(dense[k][4].shape) for k in dense}
+    say("tick-dense", seconds=f"{t_dense:.3f}", max_memory_allocated=dense_peak,
+        check_dense_launches=dense_launches, equal_to_sparse=same,
+        routes=json.dumps(dense_routes, sort_keys=True), pods_throttles_dims=json.dumps(shapes))
+    check(all(r["route"] == "dense" for r in dense_routes.values()), "dense tick took the sparse route")
+    check(dense_launches == 2, f"the dense tick launched check_dense {dense_launches} times")
+    check(same, "the dense tick disagrees with the sparse tick")
+    time_tick_parts(dm)
+    return dict(launches=launches, dense_launches=dense_launches, dense_s=t_dense,
+                dense_peak=dense_peak)
+
+
+def time_tick_parts(dm):
+    """CUDA-event times of the Throttle kind's sparse tick parts at the
+    main path's own state (L2 flushed before each timed call)."""
+    from datetime import datetime, timezone
+
+    import torch
+
+    from kube_throttler_tpu_torch.ops.aggregate import throttled_flags
+    from kube_throttler_tpu_torch.ops.check import check_pods_gather
+    from kube_throttler_tpu_torch.ops.overrides import _datetime_to_ns, calculate_thresholds
+    from kube_throttler_tpu_torch.parallel import sharded
+
+    with dm._lock:  # noqa: SLF001 — the snapshot full_tick_sharded takes
+        snap = dm._tick_snapshot_locked(dm.throttle, dense_mesh=False)
+    sched = dm._tick_encode(snap)
+    dev = dm.device
+    res = tuple(torch.from_numpy(a).to(dev) for a in snap["res"])
+    thr_valid = torch.from_numpy(snap["thr_valid"]).to(dev)
+    now_ns = torch.tensor(int(_datetime_to_ns(datetime.now(timezone.utc))), device=dev)
+    pods, cols, counted, T = snap["pods"], snap["cols"], snap["counted"], snap["tcap"]
+    thr = calculate_thresholds(sched, now_ns)
+    used_cnt, used_req, contrib = sharded.used_from_cols(pods, cols, counted, T)
+    state, _, _ = sharded._derived_state(sched, now_ns, used_cnt, used_req, contrib,
+                                         *res, thr_valid)
+    flush = 64 << 20
+    parts = {
+        "calculate_thresholds_ms": cuda_ms(lambda: calculate_thresholds(sched, now_ns), 20, flush),
+        "used_scatter_ms": cuda_ms(lambda: sharded.used_from_cols(pods, cols, counted, T), 20,
+                                   flush),
+        "throttled_flags_ms": cuda_ms(lambda: throttled_flags(
+            *thr, used_cnt, used_cnt > 0, used_req, contrib > 0), 20, flush),
+        "check_pods_gather_ms": cuda_ms(lambda: check_pods_gather(
+            state, pods, cols, on_equal=False, step3_on_equal=True), 20, flush),
+        "full_update_step_gather_ms": cuda_ms(lambda: sharded.full_update_step_gather(
+            sched, pods, cols, counted, *res, thr_valid, now_ns), 20, flush),
+    }
+    P, K = cols.shape
+    R = pods.req.shape[1]
+    # check_pods_gather's bytes bound: cols and the pod planes read once,
+    # each throttle row these cols reference read once (threshold, used and
+    # reserved as int64 with 5 bool planes, per row and per dim), counts
+    # and verdicts written once
+    rows = int(torch.unique(cols[cols >= 0]).numel())
+    nbytes = P * K * 4 + P * (R * 9 + 1) + rows * (1 + R) * (3 * 8 + 5) + P * 17
+    parts["check_pods_gather_bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+    say("time", route="throttle-tick", shape=f"{P}x{K}x{R} (T={T}, "
+        f"O={sched.ov_valid.shape[1]}, rows={rows})",
+        **{k: f"{v:.5f}" for k, v in parts.items()}, l2="flushed")
 
 
 # --------------------------------------------------------------- phases
@@ -612,6 +804,10 @@ def run() -> int:
         bad, err, _ = compare(pre, pods, mask, False, False)
         check(bad == 0, "check_dense disagrees with its plain version on the main path")
         max_err, mismatches = max(max_err, err), mismatches + bad
+
+        # -- the reconcile tick over the same cluster
+        tick = drive_tick(plugin, res.pop("verdicts"), N_TICKS)
+        check(tick["launches"] >= N_TICKS, "check_dense was not launched on every tick")
     finally:
         plugin.stop()
     P, R = pods.req.shape
@@ -685,6 +881,8 @@ def run() -> int:
         "source": f"{PORT}/csrc/check_dense.cu",
         "replaces": "kube_throttler_tpu/ops/pallas_check.py:194",
         "launches": res["launches"],
+        "tick_launches": tick["launches"],
+        "dense_tick_launches": tick["dense_launches"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,

@@ -32,6 +32,7 @@ import os
 import threading
 import time
 import weakref
+from datetime import datetime, timezone
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -61,8 +62,11 @@ from ..ops.check import (
     statuses_to_compact,
 )
 from ..ops import check_dense as _check_dense
+from ..ops.aggregate import apply_pod_deltas_batched
 from ..ops.fastcheck import precompute_check_state
+from ..ops.overrides import _datetime_to_ns, encode_override_schedule
 from ..ops.schema import DimRegistry, PodBatch, ThrottleState
+from ..parallel.sharded import full_update_step, full_update_step_gather
 
 logger = logging.getLogger(__name__)
 
@@ -1191,8 +1195,9 @@ class _KindState:
         — np.add.at commutes and associates exactly in int64 like the
         device scatter, and the parity is pinned by
         tests/test_batch_ingest.py against the real kernel.
-        ``KT_AGG_DEVICE_DELTAS=1`` selects the device kernel route, which
-        is not ported yet and raises.
+        ``KT_AGG_DEVICE_DELTAS=1`` routes the burst through the torch
+        ``apply_pod_deltas_batched`` on this kind's device instead; both
+        routes are bit-identical by construction.
 
         Caller holds the per-kind agg lock. A per-entry Python loop of
         small adds measured ~16ms per 256-key drain at cfg5 max rate; this
@@ -1201,9 +1206,16 @@ class _KindState:
             return
         ids, sign, req, pres = self._pending_batch_arrays(pending)
         if _agg_device_deltas():
-            raise NotImplementedError(
-                "KT_AGG_DEVICE_DELTAS=1 device delta route: ROADMAP queue 1 item 7"
+            dev = self.device
+            cnt, reqa, ctb = apply_pod_deltas_batched(
+                *(_upload(a, dev) for a in (
+                    self.agg_cnt, self.agg_req, self.agg_contrib, ids, sign, req, pres,
+                ))
             )
+            self.agg_cnt = cnt.cpu().numpy()
+            self.agg_req = reqa.cpu().numpy()
+            self.agg_contrib = ctb.cpu().numpy()
+            return
         flat_ids = ids.ravel()
         flat_sign = sign.ravel()
         valid = flat_ids < self.agg_cnt.shape[0]  # strip the tcap padding
@@ -1339,6 +1351,9 @@ class DeviceStateManager:
         # {kind: "sparse" | "dense"} — the batch route each kind took in the
         # last check_batch_all (replaced wholesale per call)
         self.last_batch_routes: Dict[str, str] = {}
+        # {kind: {"route": "sparse" | "dense", "overrides": O}} — the route
+        # and override capacity of each kind in the last full tick
+        self.last_tick: Dict[str, dict] = {}
         if arena is not None:
             for ks in (self.throttle, self.clusterthrottle):
                 ks.arena = arena
@@ -2620,33 +2635,138 @@ class DeviceStateManager:
     def full_tick_sharded(self, mesh, on_equal: bool = False, now=None,
                           dense_mesh: bool = False):
         """Both kinds' COMPLETE tick over a ("pods","throttles") device
-        Mesh — the multi-chip serving path for bulk triage at cluster
-        scale. One shard_map program per kind (parallel/sharded.py)
-        resolves time-varying thresholds from the override schedule,
-        re-aggregates ``used`` from the live pod set, recomputes the
-        throttled flags, and classifies every (pod × throttle) admission
-        cell; the only cross-device traffic is two psum all-reduces (used
-        partials over the pods axis, verdict counts over the throttles
-        axis) — no [P,T] global tensor ever exists on any device.
+        grid (``parallel.make_mesh``). Per kind it resolves time-varying
+        thresholds from the override schedule, re-aggregates ``used`` from
+        the live pod set, recomputes the throttled flags, and classifies
+        every (pod × throttle) admission cell. Only the 1×1 grid runs; a
+        larger one raises (ROADMAP queue 1 item 9).
 
-        Route: whenever the sparse [P,K] cols companion exists it is the
-        program on EVERY mesh — single-chip ``full_update_step_gather``,
-        multi-chip ``sharded_full_update_gather`` (O(P·K/dp) per-device
-        work; cols rebase per throttle tile). The dense [P/dp, T/tp]
-        tiled program remains for near-dense masks and under
-        ``dense_mesh=True`` (A/B and parity testing).
+        Route: whenever the sparse [P,K] cols companion exists the tick is
+        ``full_update_step_gather`` (no [P,T] tensor at all). The dense
+        ``full_update_step`` over the [P,T] mask — chunked column sums and
+        the ``check_dense`` kernel — runs for near-dense masks and under
+        ``dense_mesh=True``.
 
         Semantics: unlike ``check_batch`` (which classifies against the
         WRITTEN statuses, exactly what the reference's PreFilter reads —
         plugin.go:148-215), the full tick derives used/thresholds/flags
         from one coherent snapshot: the fused reconcile+PreFilter sweep.
         On a static store both agree (tested); under churn the tick is
-        ahead of the written statuses by design.
+        ahead of the written statuses by design. The snapshot is taken
+        under the lock; the device handles it holds are never written
+        afterwards (copy-on-write), so the work outside the lock reads one
+        point in the event stream.
 
         Returns {kind: (counts int32[P,4], schedulable bool[P], row_map,
-        used_cnt int64[T], used_req int64[T,R], col_map)}.
+        used_cnt int64[T], used_req int64[T,R], col_map)}, the arrays on
+        the host.
         """
-        raise NotImplementedError("full_tick_sharded: ROADMAP queue 1 item 7")
+        dp, tp = (mesh.shape["pods"], mesh.shape["throttles"])
+        if (dp, tp) != (1, 1):
+            raise NotImplementedError(
+                f"full_tick_sharded on a ({dp},{tp}) grid: ROADMAP queue 1 item 9"
+            )
+        if mesh.device != self.device:
+            raise ValueError(
+                f"grid device {mesh.device} is not the manager's device {self.device}"
+            )
+        now_ns = torch.tensor(
+            int(_datetime_to_ns(now or datetime.now(timezone.utc))),
+            dtype=torch.int64, device=self.device,
+        )
+        snaps = {}
+        with self.tracer.trace("tick_snapshot"), self._lock:
+            for kind in ("throttle", "clusterthrottle"):
+                ks = self._kind(kind)
+                ks.ensure_capacity()
+                if ks.pcap % dp or ks.tcap % tp:
+                    raise ValueError(
+                        f"mesh shape ({dp},{tp}) must divide padded capacities "
+                        f"({ks.pcap},{ks.tcap}); capacities are ladder rungs "
+                        "(multiples of 8), so use power-of-two mesh axes"
+                    )
+                snaps[kind] = self._tick_snapshot_locked(ks, dense_mesh)
+        out, routes = {}, {}
+        for kind, snap in snaps.items():
+            # encode outside the lock: O(T) host work over spec objects
+            with self.tracer.trace("tick_encode"):
+                sched = self._tick_encode(snap)
+            step3 = True if kind == "throttle" else on_equal
+            with self.tracer.trace("tick_device"):
+                counts, schedulable, used_cnt, used_req, _, _ = self._tick_step(
+                    snap, sched, now_ns, on_equal, step3
+                )
+                out[kind] = (
+                    counts.cpu().numpy(), schedulable.cpu().numpy(), snap["row_map"],
+                    used_cnt.cpu().numpy(), used_req.cpu().numpy(), snap["col_map"],
+                )
+            routes[kind] = {
+                "route": "dense" if snap["cols"] is None else "sparse",
+                "overrides": int(sched.ov_valid.shape[1]),
+            }
+        self.last_tick = routes
+        return out
+
+    @staticmethod
+    def _tick_snapshot_locked(ks: _KindState, dense_mesh: bool) -> dict:
+        """Under the caller's lock: one kind's tick inputs. Device handles
+        (pods, the sparse cols or the dense mask, counted), host copies of
+        the reservation and validity planes, the spec per column, and the
+        row/col decode maps."""
+        # the sparse [P,K] cols companion is preferred: the tick then needs
+        # no [P,T] tensor at all; ``dense_mesh`` forces the dense program,
+        # and small states whose cols ladder opted out run dense regardless
+        cols = None
+        if not dense_mesh:
+            pods, mask = ks.device_pods(need_mask=False)
+            cols = ks.device_cols()
+        if cols is None:
+            pods, mask = ks.device_pods()
+        specs = [None] * ks.tcap
+        for col, thr in ks.index._col_thrs.items():
+            specs[col] = thr.spec
+        return dict(
+            pods=pods,
+            mask=mask,
+            cols=cols,
+            counted=ks._device_counted(),
+            res=(
+                ks.res_cnt.copy(), ks.res_cnt_present.copy(),
+                ks.res_req.copy(), ks.res_req_present.copy(),
+            ),
+            thr_valid=ks.thr_valid.copy(),
+            specs=specs,
+            tcap=ks.tcap,
+            row_map=dict(ks.index._pod_rows),
+            col_map={c: t.key for c, t in ks.index._col_thrs.items()},
+        )
+
+    def _tick_encode(self, snap: dict):
+        """The snapshot's override schedule on the manager's device, its
+        override capacity a ladder rung of the widest spec's count."""
+        max_o = max(
+            (len(s.temporary_threshold_overrides) for s in snap["specs"] if s),
+            default=0,
+        )
+        return encode_override_schedule(
+            snap["specs"], self.dims, throttle_capacity=snap["tcap"],
+            override_capacity=_next_pow2(max_o, lo=1), device=self.device,
+        )
+
+    def _tick_step(self, snap: dict, sched, now_ns, on_equal: bool, step3: bool):
+        """One kind's full update step on the snapshot: the sparse form
+        over its cols, else the dense form over its mask."""
+        res = tuple(_upload(a, self.device) for a in snap["res"])
+        thr_valid = _upload(snap["thr_valid"], self.device)
+        if snap["cols"] is not None:
+            return full_update_step_gather(
+                sched, snap["pods"], snap["cols"], snap["counted"], *res, thr_valid,
+                now_ns, on_equal=on_equal, step3_on_equal=step3,
+            )
+        return full_update_step(
+            sched, snap["pods"], snap["mask"], snap["counted"], *res, thr_valid,
+            now_ns, on_equal=on_equal, step3_on_equal=step3,
+        )
 
     def check_batch_all(self, on_equal: bool = False):
         """Both kinds' batch checks against ONE coherent device snapshot:

@@ -11,6 +11,8 @@ elementwise/reduction pass over padded int64 milli-unit tensors:
 - ``check``       — the batched ordered 4-state admission check.
 - ``fastcheck``   — its residual form (pod-independent precompute).
 - ``check_dense`` — the dense [P,T] sweep as a hand-written CUDA kernel.
+- ``overrides``   — the override schedule and its resolution at ``now``.
+- ``aggregate``   — exact int64 used sums and streaming delta scatters.
 """
 
 from .schema import (  # noqa: F401

@@ -177,13 +177,22 @@ def check_pods(state: ThrottleState, pods: PodBatch, mask: torch.Tensor,
     return _classify(state, pods, mask, on_equal, step3_on_equal)
 
 
+#: cells of [P,T] statuses compacted at once: torch sums a bool operand
+#: through an int32 copy of it, so a block of rows bounds that copy (256 MB)
+_COMPACT_CHUNK_CELLS = 64 << 20
+
+
 def statuses_to_compact(statuses: torch.Tensor):
     """[P,T] statuses → (counts int32[P,4], schedulable bool[P]); the
     schedulable gate mirrors PreFilter (plugin.go:177-180). Shared by every
-    compact path so the gate can never silently diverge between kernels."""
-    counts = torch.stack(
-        [torch.sum(statuses == c, dim=1, dtype=torch.int32) for c in range(4)], dim=1
-    )
+    compact path so the gate can never silently diverge between kernels.
+    Rows are compacted in blocks of at most ``_COMPACT_CHUNK_CELLS`` cells."""
+    step = max(1, _COMPACT_CHUNK_CELLS // max(statuses.shape[1], 1))
+    parts = [
+        torch.stack([torch.sum(blk == c, dim=1, dtype=torch.int32) for c in range(4)], dim=1)
+        for blk in statuses.split(step)
+    ]
+    counts = parts[0] if len(parts) == 1 else torch.cat(parts)
     schedulable = (
         counts[:, CHECK_ACTIVE] + counts[:, CHECK_INSUFFICIENT] + counts[:, CHECK_POD_EXCEEDS]
     ) == 0

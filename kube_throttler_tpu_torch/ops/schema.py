@@ -227,6 +227,14 @@ def check_precomp_from_arrays(arrays: Mapping[str, object], device=None):
     return _from_arrays(CheckPrecomp, arrays, device)
 
 
+def override_schedule_from_arrays(arrays: Mapping[str, object], device=None):
+    """An ``overrides.OverrideSchedule`` from host arrays named like its
+    fields (e.g. the numpy leaves of a JAX-encoded schedule)."""
+    from .overrides import OverrideSchedule
+
+    return _from_arrays(OverrideSchedule, arrays, device)
+
+
 def _amount_into(
     row_req: np.ndarray,
     row_present: np.ndarray,

@@ -33,6 +33,7 @@ from ..metrics import (
     register_breaker_metrics,
     register_watch_metrics,
 )
+from ..parallel.mesh import make_mesh
 from ..utils.tracing import PhaseTracer, vlog
 from ..utils.clock import Clock, RealClock
 from .args import KubeThrottlerPluginArgs
@@ -479,7 +480,8 @@ class KubeThrottler:
                 if batches is not None:
                     with self.tracer.trace("batch_merge"):
                         per_kind = {
-                            kind: (ok, rows) for kind, (_, ok, rows) in batches.items()
+                            kind: (ok.cpu().numpy(), rows)
+                            for kind, (_, ok, rows) in batches.items()
                         }
                         schedulable, errors = self._merge_verdicts(per_kind, known_ns)
                         self._apply_accel_class_overrides(schedulable, errors)
@@ -572,7 +574,8 @@ class KubeThrottler:
         unknown namespaces to errors (the per-pod path returns ERROR for
         them, clusterthrottle_controller.go:273-276 — the batch surfaces
         must never report them schedulable). Shared by pre_filter_batch and
-        full_tick_sharded so the two surfaces cannot drift.
+        full_tick_sharded so the two surfaces cannot drift. ``per_kind``
+        maps kind → (schedulable bool[P] host array, row → pod-key map).
 
         Merge shape: the first kind's verdicts build the result dict in one
         C-speed ``dict(zip(...))``; later kinds only FLIP the rows they
@@ -593,7 +596,6 @@ class KubeThrottler:
             # one vectorized gather per kind instead of a scalar numpy
             # index per pod (ok[row] costs ~µs each; at 100k pods the
             # per-item form dominated the whole batch call)
-            ok = np.asarray(ok.cpu())
             idx = np.fromiter(rows.values(), dtype=np.int64, count=len(rows))
             vals = ok[idx]
             if j == 0:
@@ -661,8 +663,38 @@ class KubeThrottler:
         Unlike ``pre_filter_batch`` this classifies against the
         freshly-derived state, not the written statuses (ahead of them
         under churn).
+
+        The port runs the 1×1 grid on the plugin's device (``n_devices``
+        defaults to 1); a larger grid raises (ROADMAP queue 1 item 9).
         """
-        raise NotImplementedError("full_tick_sharded: ROADMAP queue 1 item 7")
+        if self.device_manager is None:
+            raise RuntimeError("full_tick_sharded requires the device data plane")
+        with self.tracer.trace("full_tick"):
+            mesh = make_mesh(
+                n_devices, tuple(shape) if shape else None,
+                device=self.device_manager.device,
+            )
+            known_ns = {ns.name for ns in self.listers.namespaces.list()}
+            used: dict = {}
+            out = self.device_manager.full_tick_sharded(mesh, on_equal=False)
+            for kind, (_, _, _, used_cnt, _, col_map) in out.items():
+                used[kind] = {
+                    tkey: int(used_cnt[col]) for col, tkey in col_map.items()
+                }
+            schedulable, errors = self._merge_verdicts(
+                {k: (v[1], v[2]) for k, v in out.items()}, known_ns
+            )
+            # accel-class pods resolve per-class thresholds host-side, the
+            # documented accel route (their verdicts then read the written
+            # statuses — the tick's ahead-of-status freshness applies to
+            # base-threshold pods)
+            self._apply_accel_class_overrides(schedulable, errors)
+            return {
+                "schedulable": schedulable,
+                "used": used,
+                "mesh": [mesh.shape["pods"], mesh.shape["throttles"]],
+                "errors": errors,
+            }
 
     # ---------------------------------------------------------------- reserve
 

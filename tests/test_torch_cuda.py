@@ -12,7 +12,10 @@ not installed:
   besides its one launch;
 - a launch the card refuses raises ``KernelLaunchError``;
 - the main path on ``device="cuda"`` ≡ the same stack on ``device="cpu"``
-  (``pre_filter_batch`` verdicts and routes), with the kernel launched.
+  (``pre_filter_batch`` verdicts and routes), with the kernel launched;
+- the tick's torch functions (override resolution, the aggregations and
+  scatters, both step forms) on CUDA tensors ≡ on CPU tensors at a mid
+  shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``.
 """
 
 import dataclasses
@@ -148,10 +151,9 @@ def test_kernel_launch_failure_raises(card, monkeypatch):
     assert cd.launches == before
 
 
-@pytest.mark.cuda
-def test_main_path_on_card_matches_cpu(card):
-    """pre_filter_batch on device='cuda' ≡ device='cpu' on one seeded store;
-    the ClusterThrottle kind takes the dense route through the kernel."""
+def _stack(device):
+    """A seeded served stack: 2,000 pods, 200 Throttles (the sparse route)
+    and 4 ClusterThrottles (the dense route), reconciled and prewarmed."""
     import random
 
     from kube_throttler_tpu_torch.api.pod import Namespace, make_pod
@@ -163,39 +165,43 @@ def test_main_path_on_card_matches_cpu(card):
     from kube_throttler_tpu_torch.engine.store import Store
     from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 
-    def stack(device):
-        rng = random.Random(3)
-        store = Store()
-        plugin = KubeThrottler(
-            decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
-            store, device=device,
-        )
-        store.create_namespace(Namespace("default"))
-        for i in range(200):
-            store.create_throttle(Throttle(name=f"t{i}", spec=ThrottleSpec(
-                throttler_name="kube-throttler",
-                threshold=ResourceAmount.of(pod=rng.randrange(10, 80)),
-                selector=ThrottleSelector(selector_terms=(ThrottleSelectorTerm(
-                    LabelSelector(match_labels={"grp": f"g{i % 50}"})),)))))
-        for j in range(4):
-            store.create_cluster_throttle(ClusterThrottle(name=f"c{j}", spec=ClusterThrottleSpec(
-                throttler_name="kube-throttler",
-                threshold=ResourceAmount.of(requests={"cpu": f"{(j + 1) * 60}"}),
-                selector=ClusterThrottleSelector(selector_terms=(ClusterThrottleSelectorTerm(
-                    pod_selector=LabelSelector(match_labels={"mod": f"m{j}"})),)))))
-        for k in range(2000):
-            g = rng.randrange(50)
-            store.create_pod(make_pod(
-                f"p{k}", labels={"grp": f"g{g}", "mod": f"m{g % 4}"},
-                requests={"cpu": f"{rng.randrange(1, 8) * 100}m"},
-                node_name="node-1" if k % 3 else "", phase="Running" if k % 3 else "Pending",
-            ))
-        plugin.run_pending_once()
-        plugin.device_manager.prewarm()
-        return plugin
+    rng = random.Random(3)
+    store = Store()
+    plugin = KubeThrottler(
+        decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
+        store, device=device,
+    )
+    store.create_namespace(Namespace("default"))
+    for i in range(200):
+        store.create_throttle(Throttle(name=f"t{i}", spec=ThrottleSpec(
+            throttler_name="kube-throttler",
+            threshold=ResourceAmount.of(pod=rng.randrange(10, 80)),
+            selector=ThrottleSelector(selector_terms=(ThrottleSelectorTerm(
+                LabelSelector(match_labels={"grp": f"g{i % 50}"})),)))))
+    for j in range(4):
+        store.create_cluster_throttle(ClusterThrottle(name=f"c{j}", spec=ClusterThrottleSpec(
+            throttler_name="kube-throttler",
+            threshold=ResourceAmount.of(requests={"cpu": f"{(j + 1) * 60}"}),
+            selector=ClusterThrottleSelector(selector_terms=(ClusterThrottleSelectorTerm(
+                pod_selector=LabelSelector(match_labels={"mod": f"m{j}"})),)))))
+    for k in range(2000):
+        g = rng.randrange(50)
+        store.create_pod(make_pod(
+            f"p{k}", labels={"grp": f"g{g}", "mod": f"m{g % 4}"},
+            requests={"cpu": f"{rng.randrange(1, 8) * 100}m"},
+            node_name="node-1" if k % 3 else "", phase="Running" if k % 3 else "Pending",
+        ))
+    plugin.run_pending_once()
+    plugin.device_manager.prewarm()
+    return plugin
 
-    want = stack("cpu")
-    got = stack(card)
+
+@pytest.mark.cuda
+def test_main_path_on_card_matches_cpu(card):
+    """pre_filter_batch on device='cuda' ≡ device='cpu' on one seeded store;
+    the ClusterThrottle kind takes the dense route through the kernel."""
+    want = _stack("cpu")
+    got = _stack(card)
     for plugin in (want, got):
         plugin.verdict_cache = None  # the batch kernels, not the dedupe shortcut
     before = cd.launches
@@ -205,5 +211,113 @@ def test_main_path_on_card_matches_cpu(card):
     assert out == want.pre_filter_batch()
     assert set(out["schedulable"].values()) == {True, False}
     assert got.device_manager.breaker_state() == "closed"
+    got.stop()
+    want.stop()
+
+
+def _tick_inputs(device, P=4096, T=512, R=8, K=16, O=4, seed=5):
+    """Seeded inputs of the tick's functions at a mid shape, on
+    ``device``: the schedule (through the carry-across), pods, mask and its
+    [P,K] cols, counted, reservations, validity and ``now``."""
+    from kube_throttler_tpu_torch.ops.schema import override_schedule_from_arrays
+
+    rng = np.random.default_rng(seed)
+    now = 1_750_000_000 * 10**9
+    big = np.where(np.arange(R) % 2 == 1, 2**30, 1).astype(np.int64)
+    sched = override_schedule_from_arrays(dict(
+        ov_valid=rng.random((T, O)) < 0.6,
+        ov_begin=now + rng.integers(-3600, 3600, (T, O)) * 10**9,
+        ov_end=now + rng.integers(-600, 7200, (T, O)) * 10**9,
+        ov_cnt=rng.integers(0, 40, (T, O)), ov_cnt_present=rng.random((T, O)) < 0.5,
+        ov_req=rng.integers(0, 4000, (T, O, R)) * big, ov_req_present=rng.random((T, O, R)) < 0.5,
+        spec_cnt=rng.integers(0, 40, T), spec_cnt_present=rng.random(T) < 0.5,
+        spec_req=rng.integers(0, 4000, (T, R)) * big, spec_req_present=rng.random((T, R)) < 0.6,
+    ), device=device)
+    pods = pod_batch_from_arrays(dict(
+        valid=rng.random(P) < 0.9, req=rng.integers(0, 300, (P, R)) * big,
+        req_present=rng.random((P, R)) < 0.7,
+    ), device=device)
+    cols = np.full((P, K), -1, dtype=np.int32)
+    n = rng.integers(0, K + 1, P)
+    for p in range(P):
+        cols[p, : n[p]] = np.sort(rng.choice(T, n[p], replace=False))
+    mask = np.zeros((P, T), dtype=bool)
+    rows = np.repeat(np.arange(P), K).reshape(P, K)
+    mask[rows[cols >= 0], cols[cols >= 0]] = True
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    counted = t(rng.random(P) < 0.7) & pods.valid
+    res = (t(rng.integers(0, 3, T)), t(rng.random(T) < 0.3),
+           t(rng.integers(0, 300, (T, R)) * big), t(rng.random((T, R)) < 0.3))
+    thr_valid = t(rng.random(T) < 0.95)
+    now_ns = torch.tensor(now, dtype=torch.int64, device=device)
+    return sched, pods, t(mask), t(cols), counted, res, thr_valid, now_ns, rng
+
+
+@pytest.mark.cuda
+def test_tick_functions_on_card_match_cpu(card):
+    """Each torch function of the tick on CUDA tensors ≡ the same on CPU
+    tensors, bit for bit, at 4096 pods × 512 throttles × 8 dims (K = 16):
+    the int64 scatters and column sums are exact in any order."""
+    from kube_throttler_tpu_torch.ops import aggregate as agg
+    from kube_throttler_tpu_torch.ops.overrides import calculate_thresholds
+    from kube_throttler_tpu_torch.parallel import sharded
+
+    def run(device):
+        sched, pods, mask, cols, counted, res, thr_valid, now_ns, rng = _tick_inputs(device)
+        T, R = sched.spec_req.shape
+        t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+        base = (t(rng.integers(0, 10**6, T)), t(rng.integers(0, 2**50, (T, R))),
+                t(rng.integers(0, 100, (T, R)).astype(np.int32)))
+        ids = rng.integers(-1, T + 4, (512, 8)).astype(np.int32)  # JAX-style pads
+        deltas = (t(ids), t(rng.choice([-1, 0, 1], (512, 8))), t(rng.integers(0, 2**40, (512, R))),
+                  t(rng.random((512, R)) < 0.5))
+        cols_k = t(np.r_[rng.integers(0, T, 60), [T, T + 1, -1, 3]].astype(np.int32))
+        out = {"thresholds": calculate_thresholds(sched, now_ns),
+               "aggregate_used": agg.aggregate_used(pods, mask, counted),
+               "deltas": agg.apply_pod_deltas_batched(*base, *deltas),
+               "rebase_cols": agg.rebase_cols(*base, pods, mask, counted, cols_k),
+               "aggregate_cols": agg.aggregate_cols(pods, mask, counted, cols_k),
+               "used_from_cols": sharded.used_from_cols(pods, cols, counted, T)}
+        before = cd.launches
+        for on_equal, step3 in VARIANTS:
+            out[f"step{on_equal}{step3}"] = sharded.full_update_step(
+                sched, pods, mask, counted, *res, thr_valid, now_ns,
+                on_equal=on_equal, step3_on_equal=step3)
+            out[f"gather{on_equal}{step3}"] = sharded.full_update_step_gather(
+                sched, pods, cols, counted, *res, thr_valid, now_ns,
+                on_equal=on_equal, step3_on_equal=step3)
+        return out, cd.launches - before
+
+    got, launched = run(card)
+    want, _ = run("cpu")
+    assert launched == len(VARIANTS)
+    for name in want:
+        for g, w in zip(got[name], want[name]):
+            assert g.device.type == "cuda" and g.dtype == w.dtype, name
+            assert torch.equal(g.cpu(), w), name
+        if name.startswith("step"):
+            gather = got["gather" + name[4:]]
+            assert all(torch.equal(a, b) for a, b in zip(got[name], gather)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_tick_on_card_matches_cpu(card, dense):
+    """full_tick_sharded on device='cuda' ≡ device='cpu' on one seeded
+    store, the kernel launched on the dense route."""
+    from kube_throttler_tpu_torch.parallel import make_mesh
+
+    want, got = _stack("cpu"), _stack(card)
+    before = cd.launches
+    out = got.device_manager.full_tick_sharded(make_mesh(device=card), dense_mesh=dense)
+    assert cd.launches == before + (2 if dense else 1)
+    ref = want.device_manager.full_tick_sharded(make_mesh(device="cpu"), dense_mesh=dense)
+    for kind in ("throttle", "clusterthrottle"):
+        for g, w in zip(out[kind], ref[kind]):
+            if isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype and np.array_equal(g, w), kind
+            else:
+                assert g == w, kind
+    assert got.full_tick_sharded() == want.full_tick_sharded()
     got.stop()
     want.stop()

@@ -233,8 +233,8 @@ def test_dense_dispatch_failure(monkeypatch, failure):
 def test_unported_paths_raise(monkeypatch):
     monkeypatch.setenv("KT_VERDICT_CACHE", "0")
     port = build_stack(tser, tstore, tplugin, tclock, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        port.full_tick_sharded()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        port.full_tick_sharded(8, (4, 2))
     pods = [p for p in port.listers.pods.list() if not p.spec.node_name][:2]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         port.pre_filter_gang("g", pods)
