@@ -18,15 +18,22 @@ host oracle. Then it drives the reconcile tick, ``full_tick_sharded`` on
 a 1×1 grid, over the same cluster: its verdicts must equal
 ``pre_filter_batch``'s and its used counts the written statuses, before
 and after 1,000 Throttles gain override windows, and a dense tick at full
-width must equal the sparse one. One line per phase; then one
+width must equal the sparse one. Then, on the same cluster: one
+``gang_check_groups`` over 256 pending gangs (a quarter in an accelerator
+class) must equal the sequential host oracle for every gang; the
+``victim_select`` kernel must equal its plain version at five (N, M) cells
+and three caps each; and one ``maybe_preempt_gang`` must launch it once,
+evict the host oracle's victims and let the gang admit. One line per
+phase; then one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
-Everything runs in this one process (plus ``nvidia-smi``, two ``nvcc``
-processes started together, and ``cuobjdump`` for the instruction counts).
+Everything runs in this one process (plus ``nvidia-smi``, three ``nvcc``
+processes started together — one per kernel source and the ``-Xptxas -v``
+report — and ``cuobjdump`` for the instruction counts).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -72,6 +80,16 @@ DESIGN_VARIANTS = (
 )
 # the bench's dense-sweep shape (bench.py bench_pallas_sweep), timed only
 SWEEP_SHAPE = (131072, 10240, 8)
+# the gang phase: GANGS pending groups of GANG_SIZE members on the main
+# path's cluster, a quarter of them in GANG_CLASS
+GANGS, GANG_SIZE, GANG_CLASS, GANG_CALLS, GANG_PREFILTER_SAMPLE = 256, 8, "h100", 3, 16
+# victim_select held against its plain version: (candidates N, deficit dims
+# M), each with caps 0, 1 and N / 2
+VICTIM_CELLS = ((1, 1), (40, 8), (4096, 64), (65536, 256), (1024, 2500))
+# the preemption phase's policy (tests/test_policy.py's) and label group: one
+# whose Throttles and ClusterThrottle are roomy and that no earlier phase edits
+PREEMPT_POLICY = {"name": "smoke", "preemptionEnabled": True, "minPriorityGap": 1}
+PREEMPT_GROUP = 1
 EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
             2**63 - 1, -(2**63), 123456789012345, -987654321098765]
 
@@ -704,6 +722,309 @@ def time_tick_parts(dm):
         **{k: f"{v:.5f}" for k, v in parts.items()}, l2="flushed")
 
 
+# --------------------------------------------------------------- gang admission
+
+
+def add_accel_classes(plugin):
+    """The Throttles of the label groups ≡ 7 mod 10 (1,000 of them) gain an
+    ``accelClassThresholds`` entry for ``GANG_CLASS``: 1 cpu (tighter than
+    the group's running pods) where the group's tens digit is even, roomy
+    where it is odd. Returns the count edited."""
+    from dataclasses import replace
+
+    from kube_throttler_tpu_torch.api.types import AccelClassThreshold, ResourceAmount
+
+    tight = ResourceAmount.of(requests={"cpu": "1"})
+    roomy = ResourceAmount.of(pod=10**6, requests={"cpu": "100000"})
+    store = plugin.store
+    edited = 0
+    for thr in store.list_throttles():
+        g = int(thr.name[1:]) % GROUPS
+        if g % 10 == 7:
+            entry = AccelClassThreshold(GANG_CLASS, tight if (g // 10) % 2 == 0 else roomy)
+            store.update_throttle_spec(
+                replace(thr, spec=replace(thr.spec, accel_class_thresholds=(entry,)))
+            )
+            edited += 1
+    return edited
+
+
+def build_gangs(plugin, seed: int):
+    """GANGS groups of GANG_SIZE pending members. A gang's members share
+    one label group (so each matches its ~20 Throttles and its
+    ClusterThrottle) and one cpu request of 10-50m. A quarter of the gangs
+    carry ``GANG_CLASS`` and draw their label group from the classed ones;
+    the rest draw from all. The first half of each gang's members is
+    stored as Pending, the second half is not stored. Returns
+    ``[(group key, members, accel class or None)]``."""
+    from kube_throttler_tpu_torch.api.pod import make_pod
+
+    rng = random.Random(seed)
+    classed = [g for g in range(GROUPS) if g % 10 == 7]
+    groups, stored = [], []
+    for k in range(GANGS):
+        cls = GANG_CLASS if k % 4 == 0 else None
+        g = rng.choice(classed) if cls else rng.randrange(GROUPS)
+        cpu = rng.choice((10, 20, 30, 40, 50))
+        members = [
+            make_pod(f"gang{k}-{r}", labels={"grp": f"g{g}", "mod": f"m{g % N_CLUSTER}"},
+                     requests={"cpu": f"{cpu}m"}, group=f"gang{k}", group_size=GANG_SIZE,
+                     accel_class=cls)
+            for r in range(GANG_SIZE)
+        ]
+        stored += [("create", "Pod", pod) for pod in members[: GANG_SIZE // 2]]
+        groups.append((f"default/gang{k}", members, cls))
+    for res in plugin.store.apply_events(stored):
+        if isinstance(res, Exception):
+            raise res
+    return groups
+
+
+def drive_gang(plugin, seed: int):
+    """The ``[gang]`` phase: the accel-class edit and reconcile, then one
+    ``gang_check_groups`` over every gang, held against the sequential
+    host oracle for every gang, and ``pre_filter_gang`` on 16 of them
+    against the batched verdict. Prints the call's wall time (encode
+    included) and peak device memory, and the CUDA-event time of its
+    ``gang_check_both`` on the operands it built."""
+    import torch
+
+    from kube_throttler_tpu_torch.engine.gang import sequential_gang_check
+    from kube_throttler_tpu_torch.ops import gang_check as gc
+
+    dm = plugin.device_manager
+    t0 = time.perf_counter()
+    edited = add_accel_classes(plugin)
+    n_rec = plugin.run_pending_once()
+    groups = build_gangs(plugin, seed)
+    plugin.run_pending_once()
+    t_setup = time.perf_counter() - t0
+
+    captured = []
+    real = gc.gang_check_both
+
+    def capture(*args, **kwargs):
+        captured.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    wall = []
+    gc.gang_check_both = capture
+    try:
+        for _ in range(GANG_CALLS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = dm.gang_check_groups(groups)
+            wall.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        gc.gang_check_both = real
+    args, kwargs = captured[-1]
+    device_ms = cuda_ms(lambda: real(*args, **kwargs), 10)
+
+    kinds = (("throttle", plugin.throttle_ctr, False),
+             ("clusterthrottle", plugin.cluster_throttle_ctr, False))
+    t0 = time.perf_counter()
+    oracle = {gk: sequential_gang_check(members, kinds)[0] for gk, members, _ in groups}
+    t_oracle = time.perf_counter() - t0
+    mismatches = sum(out[gk]["ok"] is not oracle[gk] for gk, _, _ in groups)
+    sample = random.Random(seed + 3).sample(groups, GANG_PREFILTER_SAMPLE)
+    prefilter_mismatches = sum(
+        plugin.pre_filter_gang(gk, members).is_success() is not out[gk]["ok"]
+        for gk, members, _ in sample
+    )
+    fit = sum(v["ok"] for v in out.values())
+    classed_fit = sum(out[gk]["ok"] for gk, _, cls in groups if cls)
+    a = args[0]
+    say("gang", groups=len(groups), members=sum(len(m) for _, m, _ in groups),
+        throttles_classed=edited, reconciled=n_rec, setup_s=f"{t_setup:.3f}",
+        dispatch_ms=json.dumps([round(w * 1e3, 3) for w in wall]),
+        gang_check_both_ms=f"{device_ms:.5f}", max_memory_allocated=peak,
+        padded_N_K_T_R=json.dumps([*a["cols"].shape, a["thr_valid"].shape[0],
+                                   a["pod_req"].shape[1]]),
+        fit=fit, rejected=len(groups) - fit, classed_fit=classed_fit,
+        oracle_mismatches=mismatches, oracle_s=f"{t_oracle:.3f}",
+        prefilter_sample=len(sample), prefilter_mismatches=prefilter_mismatches,
+        breaker=dm.breaker_state())
+    check(edited == N_THROTTLES // 10, f"{edited} Throttles classed")
+    check(len(out) == GANGS, f"gang_check_groups answered {len(out)} of {GANGS} gangs")
+    check(mismatches == 0, f"{mismatches} gang verdicts disagree with the host oracle")
+    check(prefilter_mismatches == 0, "pre_filter_gang disagrees with the batched verdict")
+    check(fit >= GANGS // 10 and len(groups) - fit >= GANGS // 10,
+          f"{fit} of {GANGS} gangs fit: the phase needs >= 10 % of each outcome")
+    check(dm.breaker_state() == "closed", f"breaker is {dm.breaker_state()}")
+    return dict(wall=wall, device_ms=device_ms, peak=peak, fit=fit)
+
+
+# --------------------------------------------------------------- victim selection
+
+
+def victim_problem(rng: np.random.Generator, N: int, M: int):
+    """A seeded ranked problem: contrib 90 % zeros, the rest up to 2^40
+    milli-units; each deficit a random share of its column's sum (so the
+    walk runs deep), a tenth of the dims already met (<= 0)."""
+    contrib = rng.integers(0, 2**40, (N, M), dtype=np.int64)
+    contrib[rng.random((N, M)) < 0.9] = 0
+    share = rng.uniform(0.2, 0.8, M)
+    deficit = (contrib.sum(0) * share).astype(np.int64)
+    deficit[rng.random(M) < 0.1] *= -1
+    if N == 1:
+        contrib[0, 0], deficit[0] = 5, 3
+    return contrib, deficit
+
+
+def once_ms(fn):
+    """(result, device ms) of one call of ``fn``, by CUDA events."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def victim_bound(contrib, deficit, cap: int, selected, ok: bool):
+    """The least time of this walk, as a dict: the rows it needs (up to the
+    take that closed every deficit or reached the cap, else all N), each
+    read once with the deficit, and the outputs written once, over HBM
+    bandwidth; its operations (per needed row and dim an s64 compare of
+    contrib and of remaining and their AND, and per take and dim an s64
+    subtraction; an s64 op is two 32-bit ones) over the INT32 issue rate."""
+    N, M = contrib.shape
+    takes = np.nonzero(selected)[0]
+    stopped = ok or (cap > 0 and takes.size >= cap)
+    rows = (int(takes[-1]) + 1 if takes.size else 0) if stopped else N
+    nbytes = rows * M * 8 + M * 8 + N + 1 + M * 8
+    ops = rows * M * (2 * 2 + 1) + takes.size * M * 2
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "rows_walked": rows, "takes": int(takes.size)}
+
+
+def compare_victim(contrib, deficit, cap: int, iters: int):
+    """Kernel against its plain version on the same card tensors: (equal
+    bit for bit, max |remaining difference|, kernel ms, plain ms, bound)."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    c = torch.from_numpy(contrib).cuda()
+    d = torch.from_numpy(deficit).cuda()
+    got = vsel.victim_select(c, d, cap)
+    want, plain_ms = once_ms(lambda: vsel.victim_select_reference(c, d, cap))
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want))
+    err = int((got[2] - want[2]).abs().max()) if deficit.size else 0
+    k_ms = cuda_ms(lambda: vsel.victim_select(c, d, cap), iters)
+    bound = victim_bound(contrib, deficit, cap, want[0].cpu().numpy(), bool(want[1]))
+    return same, err, k_ms, plain_ms, bound
+
+
+def drive_victim_cells(seed: int):
+    """The ``[victim]`` phase: the kernel against its plain version at every
+    cell of VICTIM_CELLS and cap. Returns per-cell rows for the kernels
+    line and the total mismatches."""
+    rng = np.random.default_rng(seed)
+    rows, mismatches, max_err = [], 0, 0
+    for N, M in VICTIM_CELLS:
+        contrib, deficit = victim_problem(rng, N, M)
+        for cap in sorted({0, 1, N // 2}):
+            same, err, k_ms, p_ms, bound = compare_victim(contrib, deficit, cap,
+                                                          5 if N * M > 10**6 else 20)
+            mismatches += not same
+            max_err = max(max_err, err)
+            row = {"N": N, "M": M, "cap": cap, "ms": k_ms, "plain_ms": p_ms, **bound}
+            rows.append(row)
+            say("victim", N=N, M=M, cap=cap, equal=same, kernel_ms=f"{k_ms:.5f}",
+                plain_ms=f"{p_ms:.3f}", bound_ms=f"{bound['bound_ms']:.6f}",
+                bound_by=bound["bound_by"], rows_walked=bound["rows_walked"],
+                takes=bound["takes"])
+            check(same, f"victim_select disagrees with its plain version at {N}x{M} cap {cap}")
+    return rows, mismatches, max_err
+
+
+# --------------------------------------------------------------- preemption
+
+
+def drive_preempt(plugin, group: int):
+    """The ``[preempt]`` phase, last because it evicts pods: a preemption
+    policy, Throttle ``t{group}`` set to 300m above its used cpu, a
+    priority-5 gang of GANG_SIZE × 100m in that label group rejected for
+    capacity, then ``maybe_preempt_gang`` with the kernel count zeroed just
+    before and read just after. The evicted pods must be the host oracle's
+    victims on the same ranked problem, and after a reconcile the gang
+    must admit. Returns the numbers the kernels line reports."""
+    from dataclasses import replace
+
+    from kube_throttler_tpu_torch.api.pod import make_pod, priority_of
+    from kube_throttler_tpu_torch.api.types import ResourceAmount
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+    from kube_throttler_tpu_torch.policy.preempt import _next_pow2
+    from kube_throttler_tpu_torch.policy.victims import (
+        build_selection_problem, compute_gang_deficits, sequential_victim_select,
+    )
+    from kube_throttler_tpu_torch.quantity import to_milli
+
+    store, coord = plugin.store, plugin.preempt
+    plugin.set_policy_specs([dict(PREEMPT_POLICY)])
+    thr = store.get_throttle("default", f"t{group}")
+    used = to_milli(thr.status.used.resource_requests["cpu"])
+    store.update_throttle_spec(replace(thr, spec=replace(
+        thr.spec, threshold=ResourceAmount.of(requests={"cpu": f"{used + 300}m"}))))
+    plugin.run_pending_once()
+    gang = [make_pod(f"hi-{r}", labels={"grp": f"g{group}", "mod": f"m{group % N_CLUSTER}"},
+                     requests={"cpu": "100m"}, group="hi", group_size=GANG_SIZE, priority=5)
+            for r in range(GANG_SIZE)]
+    before = plugin.pre_filter_gang("default/hi", gang)
+    check(not before.is_success(), "the priority-5 gang was not rejected before preemption")
+
+    # the oracle's victims on the ranked problem the cycle will build
+    spec = plugin.policy.active()
+    deficits = compute_gang_deficits(gang, coord.kind_controllers)
+    units = coord._gather_units(deficits, {p.key for p in gang},  # noqa: SLF001
+                                max(map(priority_of, gang)), spec)
+    _dims, deficit, contrib = build_selection_problem(deficits, units)
+    ok_s, sel_s, _ = sequential_victim_select(deficit, contrib, spec.max_victims_per_cycle)
+    want = sorted(p.key for i in sel_s for p in units[i].pods)
+
+    live0 = {p.key for p in store.list_pods("default")}
+    vsel.launches = 0
+    t0 = time.perf_counter()
+    evicted = plugin.maybe_preempt_gang("default/hi", gang)
+    t_cycle = time.perf_counter() - t0
+    launches = vsel.launches
+    gone = sorted(live0 - {p.key for p in store.list_pods("default")})
+    plugin.run_pending_once()
+    after = plugin.pre_filter_gang("default/hi", gang)
+    N, M = contrib.shape
+    say("preempt", group=f"g{group}", deficit_m=json.dumps(deficit.tolist()),
+        candidates=N, deficit_dims=M, N_x_M=N * M, padded=json.dumps(
+            [_next_pow2(max(N, 1)), _next_pow2(max(M, 1), lo=4)]),
+        cycle_s=f"{t_cycle:.4f}", evicted=len(gone), victims_equal_oracle=gone == want,
+        victim_select_launches=launches, rejected_before=before.reasons[:1],
+        admitted_after=after.is_success(), breaker=plugin.device_manager.breaker_state())
+    check(evicted is True and len(gone) > 0, "maybe_preempt_gang evicted nothing")
+    check(ok_s and gone == want, f"evicted {gone}, the oracle's victims are {want}")
+    check(launches == 1, f"victim_select launched {launches} times in the cycle")
+    check(N >= 100, f"only {N} candidates in the cycle")
+    check(after.is_success(), f"the gang does not admit after preemption: {after.reasons}")
+
+    # the kernel at the shape the cycle gave it, against its plain version
+    Np, Mp = _next_pow2(max(N, 1)), _next_pow2(max(M, 1), lo=4)
+    contrib_p = np.zeros((Np, Mp), dtype=np.int64)
+    contrib_p[:N, :M] = contrib
+    deficit_p = np.zeros(Mp, dtype=np.int64)
+    deficit_p[:M] = deficit
+    same, err, k_ms, p_ms, bound = compare_victim(contrib_p, deficit_p,
+                                                  spec.max_victims_per_cycle, 50)
+    check(same, "victim_select disagrees with its plain version on the preemption path")
+    return dict(launches=launches, same=same, err=err, ms=k_ms, plain_ms=p_ms, bound=bound,
+                shape=[Np, Mp], candidates=N)
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -720,6 +1041,7 @@ def run() -> int:
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
     from kube_throttler_tpu_torch.ops.check import statuses_to_compact
     from kube_throttler_tpu_torch.ops.fastcheck import precompute_check_state
     from kube_throttler_tpu_torch.ops.schema import (
@@ -732,11 +1054,17 @@ def run() -> int:
         python=sys.version.split()[0], devices=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report()  # a second nvcc, beside the loader's build
+    # every kernel's nvcc and the ptxas report's, all started together
+    ptxas = start_ptxas_report()
     try:
-        lib = cd.load_library()
-        say("build", kernel="check_dense", seconds=f"{time.perf_counter() - t0:.2f}",
-            library=lib._name)
+        with ThreadPoolExecutor(1) as pool:
+            v_build = pool.submit(vsel.load_library)
+            lib = cd.load_library()
+            say("build", kernel="check_dense", seconds=f"{time.perf_counter() - t0:.2f}",
+                library=lib._name)
+            vlib = v_build.result()
+            say("build", kernel="victim_select", seconds=f"{time.perf_counter() - t0:.2f}",
+                library=vlib._name)
         ptxas_rows = finish_ptxas_report(*ptxas)
     finally:
         if ptxas[0].poll() is None:
@@ -808,6 +1136,11 @@ def run() -> int:
         # -- the reconcile tick over the same cluster
         tick = drive_tick(plugin, res.pop("verdicts"), N_TICKS)
         check(tick["launches"] >= N_TICKS, "check_dense was not launched on every tick")
+
+        # -- gang admission, victim selection and preemption, same cluster
+        drive_gang(plugin, SEED + 4)
+        victim_rows, victim_bad, victim_err = drive_victim_cells(SEED + 5)
+        preempt = drive_preempt(plugin, PREEMPT_GROUP)
     finally:
         plugin.stop()
     P, R = pods.req.shape
@@ -899,6 +1232,22 @@ def run() -> int:
                   **s_bound},
         "variants": variants,
         "ptxas": ptxas_rows,
+    }, {
+        "name": "victim_select",
+        "route": "cuda",
+        "source": f"{PORT}/csrc/victim_select.cu",
+        "replaces": "kube_throttler_tpu/ops/victim_select.py:44",
+        "launches": preempt["launches"],
+        "max_abs_err": max(victim_err, preempt["err"]),
+        "mismatches": victim_bad + (not preempt["same"]),
+        "ms": preempt["ms"],
+        "plain_ms": preempt["plain_ms"],
+        "bound_ms": preempt["bound"]["bound_ms"],
+        "bound_by": preempt["bound"]["bound_by"],
+        "library_ms": None,
+        "shape": preempt["shape"],
+        "rows_walked": preempt["bound"]["rows_walked"],
+        "cells": victim_rows,
     }]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

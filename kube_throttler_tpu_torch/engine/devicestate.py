@@ -1995,9 +1995,127 @@ class DeviceStateManager:
 
         Locking mirrors check_pod: the main lock covers only the host
         snapshot (member encodes, matched cols, plane copies, class-plane
-        encode); the dispatch and decode run outside it. Shapes ladder-pad
-        (members, groups, per-kind K) so a tick burst never recompiles."""
-        raise NotImplementedError("gang_check_groups: ROADMAP queue 1 item 8")
+        encode); the upload, dispatch and decode run outside it. Shapes
+        ladder-pad (members, groups, per-kind K), so padded rows stay inert
+        exactly as in the JAX package and the allocator sees few sizes."""
+        from ..ops.gang_check import gang_check_both
+        from ..ops.overrides import encode_class_thresholds
+
+        if not groups:
+            return {}
+        classes: List[str] = []
+        for _gk, _pods, cls in groups:
+            if cls and cls not in classes:
+                classes.append(cls)
+        members: List[Tuple[int, Pod]] = []
+        for g, (_gk, pods, _cls) in enumerate(groups):
+            for pod in pods:
+                members.append((g, pod))
+        N = _next_pow2(max(len(members), 1))
+        G = _next_pow2(max(len(groups), 1), lo=4)
+        gid = np.zeros(N, dtype=np.int32)
+        member_valid = np.zeros(N, dtype=bool)
+        gvalid = np.zeros(G, dtype=bool)
+        gvalid[: len(groups)] = True
+        gclass = np.zeros(G, dtype=np.int32)
+        for g, (_gk, _pods, cls) in enumerate(groups):
+            gclass[g] = (classes.index(cls) + 1) if cls else 0
+
+        per_kind: Dict[str, dict] = {}
+        col_key_maps: Dict[str, dict] = {}
+        with self._lock:
+            for kind in ("throttle", "clusterthrottle"):
+                self._kind(kind).ensure_capacity()
+            R = self.dims.capacity
+            pod_req = np.zeros((N, R), dtype=np.int64)
+            pod_present = np.zeros((N, R), dtype=bool)
+            member_cols: Dict[str, List[np.ndarray]] = {
+                "throttle": [], "clusterthrottle": []
+            }
+            for i, (g, pod) in enumerate(members):
+                gid[i] = g
+                member_valid[i] = True
+                row_req, row_pres = self._encoded_row(self.throttle, pod)
+                pod_req[i, : row_req.shape[1]] = row_req[0]
+                pod_present[i, : row_pres.shape[1]] = row_pres[0]
+                for kind in ("throttle", "clusterthrottle"):
+                    ks = self._kind(kind)
+                    prow = ks.index.pod_row(pod.key)
+                    if prow is not None:
+                        cols = ks.index.row_cols(prow)
+                    else:
+                        # pending pod not yet stored: compiled-row match,
+                        # same path as check_pod's PreFilter case
+                        with ks.index._lock:  # noqa: SLF001 — same-package access
+                            rowmask = (
+                                ks.index.match_row_cached_locked(pod)
+                                & ks.index._thr_valid
+                            )
+                        cols = np.nonzero(rowmask[: ks.tcap])[0]
+                    member_cols[kind].append(cols.astype(np.int32))
+            for kind in ("throttle", "clusterthrottle"):
+                ks = self._kind(kind)
+                kmax = max((c.size for c in member_cols[kind]), default=0)
+                K = _next_pow2(max(kmax, 1), lo=4)
+                cols_arr = np.full((N, K), -1, dtype=np.int32)
+                for i, cols in enumerate(member_cols[kind]):
+                    cols_arr[i, : cols.size] = cols
+                cls_cnt, cls_cnt_p, cls_req, cls_req_p = encode_class_thresholds(
+                    ks.thr_cnt, ks.thr_cnt_present, ks.thr_req,
+                    ks.thr_req_present, ks.accel_cols, classes, self.dims,
+                )
+                per_kind[kind] = {
+                    "cols": cols_arr,
+                    "thr_valid": ks.thr_valid.copy(),
+                    "cls_cnt": cls_cnt,
+                    "cls_cnt_present": cls_cnt_p,
+                    "cls_req": cls_req,
+                    "cls_req_present": cls_req_p,
+                    "st_cnt_throttled": ks.st_cnt_throttled.copy(),
+                    "st_req_flag_present": ks.st_req_flag_present.copy(),
+                    "st_req_throttled": ks.st_req_throttled.copy(),
+                    "au_cnt": (ks.used_cnt + ks.res_cnt),
+                    "au_req": (ks.used_req + ks.res_req),
+                }
+                with ks.index._lock:  # noqa: SLF001 — declared guard
+                    col_key_maps[kind] = dict(ks.index._col_keys)
+
+        # ---- outside the lock: upload, the single fused call, decode ------
+        dev = self.device
+        members_t = {
+            "pod_req": _upload(pod_req, dev), "pod_present": _upload(pod_present, dev),
+            "member_valid": _upload(member_valid, dev), "gid": _upload(gid, dev),
+        }
+        ok, (out_t, out_c) = gang_check_both(
+            {**members_t, **{k: _upload(v, dev) for k, v in per_kind["throttle"].items()}},
+            {**members_t,
+             **{k: _upload(v, dev) for k, v in per_kind["clusterthrottle"].items()}},
+            _upload(gclass, dev), _upload(gvalid, dev), num_groups=G,
+        )
+        ok = ok.cpu().numpy()
+        details = {"throttle": out_t, "clusterthrottle": out_c}
+        decoded = {
+            kind: tuple(a.cpu().numpy() for a in out)
+            for kind, out in details.items()
+        }
+        results: Dict[str, dict] = {}
+        for g, (gk, _pods, _cls) in enumerate(groups):
+            kinds_out = {}
+            for kind in ("throttle", "clusterthrottle"):
+                okk, exceeds, active, blocked = decoded[kind]
+                ckmap = col_key_maps[kind]
+                kinds_out[kind] = {
+                    "ok": bool(okk[g]),
+                    "exceeds": bool(exceeds[g]),
+                    "active": bool(active[g]),
+                    "blocked": [
+                        ckmap[c]
+                        for c in np.nonzero(blocked[g])[0].tolist()
+                        if c in ckmap
+                    ],
+                }
+            results[gk] = {"ok": bool(ok[g]), "kinds": kinds_out}
+        return results
 
     # -- used aggregation (replaces reconcile's per-throttle pod-sum loop,
     # throttle_controller.go:103-119) -------------------------------------

@@ -25,6 +25,7 @@ from ..controllers import ClusterThrottleController, ThrottleController
 from ..engine.devicestate import DeviceStateManager
 from ..engine.store import Store
 from ..health import Health
+from ..ops.check_dense import KernelLaunchError
 from ..metrics import (
     ClusterThrottleMetricsRecorder,
     Registry,
@@ -889,10 +890,13 @@ class KubeThrottler:
         gate → deficits → ranked victim selection (batched kernel ≡
         sequential oracle) → journaled, gang-atomic delete-then-requeue
         eviction. True iff victims were evicted (the freed capacity's
-        requeue hints will re-drive the group)."""
+        requeue hints will re-drive the group). A victim-selection kernel
+        that fails to launch raises ``KernelLaunchError`` to the caller."""
         with self.tracer.trace("preempt"):
             try:
                 report = self.preempt.preempt_for_gang(group_key, list(pods))
+            except KernelLaunchError:
+                raise
             except Exception:
                 logger.exception("preemption cycle failed for gang %s", group_key)
                 return False

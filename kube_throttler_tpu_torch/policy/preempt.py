@@ -50,6 +50,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..api.pod import Pod, accel_class_of, pod_group_of, priority_of
 from ..engine.store import EventType
@@ -71,6 +72,13 @@ logger = logging.getLogger(__name__)
 # (plus on every policy generation bump) — time-window activation flips
 # are observed within one stride without paying an active() per event
 _ENABLED_PROBE_STRIDE = 1024
+
+
+def _next_pow2(n: int, lo: int = 8) -> int:
+    v = lo
+    while v < n:
+        v <<= 1
+    return v
 
 
 @guard_attrs
@@ -228,14 +236,31 @@ class PreemptionCoordinator:
     # -- selection ----------------------------------------------------------
 
     def _select(self, deficit: np.ndarray, contrib: np.ndarray, max_victims: int):
-        """Kernel when a device manager is wired (not ported yet: raises),
-        host oracle otherwise."""
+        """Kernel when a device manager is wired (padded shapes, on the
+        manager's device), host oracle otherwise — identical ranked arrays,
+        pinned-equal semantics. A kernel that fails to launch raises
+        (``KernelLaunchError``): the host oracle never stands in for it."""
         use_device = (
             self.device_manager is not None
             and os.environ.get("KT_PREEMPT_DEVICE", "1") != "0"
         )
         if use_device and deficit.size:
-            raise NotImplementedError("victim_select: ROADMAP queue 1 item 8")
+            from ..ops.victim_select import victim_select
+
+            n, m = contrib.shape
+            np_pad = _next_pow2(max(n, 1))
+            mp_pad = _next_pow2(max(m, 1), lo=4)
+            contrib_p = np.zeros((np_pad, mp_pad), dtype=np.int64)
+            contrib_p[:n, :m] = contrib
+            deficit_p = np.zeros(mp_pad, dtype=np.int64)
+            deficit_p[:m] = deficit
+            dev = self.device_manager.device
+            selected, ok, _remaining = victim_select(
+                torch.from_numpy(contrib_p).to(dev), torch.from_numpy(deficit_p).to(dev),
+                max_victims=max_victims,
+            )
+            sel = selected.cpu().numpy()[:n]
+            return bool(ok.cpu()), list(np.nonzero(sel)[0])
         ok, selected, _remaining = sequential_victim_select(
             deficit, contrib, max_victims=max_victims
         )

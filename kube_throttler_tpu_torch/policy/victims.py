@@ -27,10 +27,10 @@ operates on units.
 
 :func:`sequential_victim_select` is the per-candidate ORACLE: a plain
 Python greedy walk over the flattened deficit vector. The batched kernel
-(ops/victim_select.py) computes the SAME walk as one ``lax.scan`` dispatch
-over the ranked contribution matrix; the seeded equivalence sweep and the
-hypothesis twin (tests/test_policy.py, tests/test_victim_property.py) pin
-kernel ≡ oracle on both the verdict and the selected set.
+(ops/victim_select.py) computes the SAME walk in one single-block CUDA
+launch over the ranked contribution matrix; the seeded equivalence sweep
+and the hypothesis twin (tests/test_torch_victim_select.py) pin kernel ≡
+oracle on both the verdict and the selected set.
 
 All quantities are integer milli-units (``_milli_ceil`` — conservative
 ceiling for sub-milli fractions, identical on both paths) so kernel and

@@ -15,7 +15,10 @@ not installed:
   (``pre_filter_batch`` verdicts and routes), with the kernel launched;
 - the tick's torch functions (override resolution, the aggregations and
   scatters, both step forms) on CUDA tensors ≡ on CPU tensors at a mid
-  shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``.
+  shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``;
+- the victim_select kernel ≡ its plain version (shared-memory and
+  device-memory routes, caps), a refused launch raises, and
+  ``gang_check_groups`` on ``device="cuda"`` ≡ ``"cpu"``.
 """
 
 import dataclasses
@@ -319,5 +322,70 @@ def test_tick_on_card_matches_cpu(card, dense):
             else:
                 assert g == w, kind
     assert got.full_tick_sharded() == want.full_tick_sharded()
+    got.stop()
+    want.stop()
+
+
+@pytest.mark.cuda
+def test_victim_kernel_matches_plain(card):
+    """victim_select's kernel ≡ its plain version on the card, bit for bit,
+    each launch counted once: one row, a deficit already met, more dims
+    than threads (M = 2500), and remaining held in device memory
+    (M = 30000, past the shared-memory route), each with caps 0, 1, N / 2."""
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    rng = np.random.default_rng(6)
+    for N, M in ((1, 1), (37, 5), (3, 7), (500, 64), (300, 2500), (40, 30000)):
+        contrib = rng.integers(0, 2**40, (N, M), dtype=np.int64)
+        contrib[rng.random((N, M)) < 0.9] = 0
+        deficit = (contrib.sum(0) * rng.uniform(0.2, 0.8, M)).astype(np.int64)
+        if N == 3:
+            deficit[:] = -1
+        c, d = torch.from_numpy(contrib).to(card), torch.from_numpy(deficit).to(card)
+        for cap in sorted({0, 1, N // 2}):
+            before = vsel.launches
+            got = vsel.victim_select(c, d, cap)
+            torch.cuda.synchronize()
+            assert vsel.launches == before + 1
+            want = vsel.victim_select_reference(c, d, cap)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (N, M, cap)
+
+
+@pytest.mark.cuda
+def test_victim_kernel_launch_failure_raises(card, monkeypatch):
+    """A launch the card refuses (2048 threads, through the geometry hook)
+    raises KernelLaunchError and counts no launch."""
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    monkeypatch.setattr(vsel, "_launch_shape", lambda M: (2048, M * 8))
+    c = torch.ones((4, 4), dtype=torch.int64, device=card)
+    before = vsel.launches
+    with pytest.raises(cd.KernelLaunchError, match="cudaError"):
+        vsel.victim_select(c, torch.ones(4, dtype=torch.int64, device=card))
+    assert vsel.launches == before
+
+
+@pytest.mark.cuda
+def test_gang_check_groups_on_card_matches_cpu(card):
+    """gang_check_groups on device='cuda' ≡ device='cpu' on one seeded
+    store: stored and unstored members, two accel classes."""
+    import random
+
+    from kube_throttler_tpu_torch.api.pod import make_pod
+
+    want, got = _stack("cpu"), _stack(card)
+    rng = random.Random(8)
+    groups = []
+    for k in range(40):
+        g, cls = rng.randrange(50), [None, "v5e", None, "v5p"][k % 4]
+        members = [make_pod(f"gang{k}-{r}", labels={"grp": f"g{g}", "mod": f"m{g % 4}"},
+                            requests={"cpu": f"{rng.randrange(1, 30) * 10}m"}, group=f"gang{k}",
+                            group_size=4, accel_class=cls) for r in range(4)]
+        groups.append((f"default/gang{k}", members, cls))
+    out = got.device_manager.gang_check_groups(groups)
+    assert out == want.device_manager.gang_check_groups(groups)
+    assert {v["ok"] for v in out.values()} == {True, False}
+    assert got.device_manager.breaker_state() == "closed"
     got.stop()
     want.stop()

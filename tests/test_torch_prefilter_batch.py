@@ -231,12 +231,17 @@ def test_dense_dispatch_failure(monkeypatch, failure):
 
 
 def test_unported_paths_raise(monkeypatch):
+    """The multi-device tick is not ported yet and raises. Gang admission
+    is ported, and answers as the reference does on the same store."""
     monkeypatch.setenv("KT_VERDICT_CACHE", "0")
-    port = build_stack(tser, tstore, tplugin, tclock, device="cpu")
+    ref, port = _stacks()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
         port.full_tick_sharded(8, (4, 2))
-    pods = [p for p in port.listers.pods.list() if not p.spec.node_name][:2]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        port.pre_filter_gang("g", pods)
+    keys = sorted(p.key for p in port.listers.pods.list() if not p.spec.node_name)[:2]
+    got = port.pre_filter_gang("g", [port.store.get_pod(*k.split("/")) for k in keys])
+    want = ref.pre_filter_gang("g", [ref.store.get_pod(*k.split("/")) for k in keys])
+    assert (got.code.name, got.reasons) == (want.code.name, want.reasons)
     # an unported path is not a device failure: the breaker stays closed
     assert port.device_manager.breaker_state() == "closed"
+    ref.stop()
+    port.stop()
