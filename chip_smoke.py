@@ -7,18 +7,25 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port's main path from ``csrc/`` (into
-the ignored ``build/kernels/``; beside it, the same source once more with
-``-Xptxas -v`` for each instantiation's registers, shared memory and
-spills, and its SASS instruction counts), holds each kernel against its plain PyTorch version on the card
-(every onEqual/step-3 variant, both R routes, a throttle count past 65,535
-blocks of 32), drives the main path —
-``KubeThrottler.pre_filter_batch`` over 100,000 bound pods, 10,000
-Throttles and 8 ClusterThrottles — and checks its verdicts against the
-host oracle. Then it drives the reconcile tick, ``full_tick_sharded`` on
-a 1×1 grid, over the same cluster: its verdicts must equal
-``pre_filter_batch``'s and its used counts the written statuses, before
-and after 1,000 Throttles gain override windows, and a dense tick at full
-width must equal the sparse one. Then, on the same cluster: one
+the ignored ``build/kernels/``; beside them, ``check_dense.cu`` and
+``check_gather.cu`` once more with ``-Xptxas -v`` for each instantiation's
+registers, shared memory and spills, and their SASS instruction counts),
+holds each kernel against its plain PyTorch version on the card
+(``check_dense``: every onEqual/step-3 variant, both R routes, a throttle
+count past 65,535 blocks of 32; ``check_gather``: every variant and both
+output forms at K in {4, 32, 64, 2048} × R in {3, 8, 16, 20} and at
+131072 × 32 × 8, with int64 extremes, pads and cols >= T), drives the
+main path — ``KubeThrottler.pre_filter_batch`` over 100,000 bound pods,
+10,000 Throttles and 8 ClusterThrottles, the Throttle kind through
+``check_gather`` and the ClusterThrottle kind through ``check_dense`` —
+and checks its verdicts against the host oracle. The coalescer's
+``check_pods_multi`` over 256 stored pods, forced onto the device route
+(one ``check_gather`` launch per kind), must equal its host route. Then
+it drives the reconcile tick, ``full_tick_sharded`` on a 1×1 grid, over
+the same cluster: its verdicts must equal ``pre_filter_batch``'s and its
+used counts the written statuses, before and after 1,000 Throttles gain
+override windows, and a dense tick at full width must equal the sparse
+one. Then, on the same cluster: one
 ``gang_check_groups`` over 256 pending gangs (a quarter in an accelerator
 class) must equal the sequential host oracle for every gang; the
 ``victim_select`` kernel must equal its plain version at five (N, M) cells
@@ -31,9 +38,9 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
-Everything runs in this one process (plus ``nvidia-smi``, three ``nvcc``
-processes started together — one per kernel source and the ``-Xptxas -v``
-report — and ``cuobjdump`` for the instruction counts).
+Everything runs in this one process (plus ``nvidia-smi``, five ``nvcc``
+processes started together — one per kernel source and two ``-Xptxas -v``
+reports — and ``cuobjdump`` for the instruction counts).
 """
 
 from __future__ import annotations
@@ -90,6 +97,14 @@ VICTIM_CELLS = ((1, 1), (40, 8), (4096, 64), (65536, 256), (1024, 2500))
 # whose Throttles and ClusterThrottle are roomy and that no earlier phase edits
 PREEMPT_POLICY = {"name": "smoke", "preemptionEnabled": True, "minPriorityGap": 1}
 PREEMPT_GROUP = 1
+# check_gather held against its plain version beyond the card tests' cells
+# (tests/torch_gather_cases.py): the tick's shape, 131072 pods × K = 32 ×
+# tcap 16384 × R = 8
+GATHER_TICK_CELL = (131072, 32, 16384, 8)
+# the coalescer phase: stored pods per check_pods_multi call
+COALESCE_PODS = 256
+# kernel instantiations ptxas must report per source
+PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 8}
 EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
             2**63 - 1, -(2**63), 123456789012345, -987654321098765]
 
@@ -184,6 +199,38 @@ def extremes_inputs(device):
     return pre, pods, torch.ones((n, n), dtype=torch.bool, device=device)
 
 
+def gather_cases():
+    """``tests/torch_gather_cases.py`` of this checkout, loaded by its path:
+    an installed package named ``tests`` would shadow the repo's directory,
+    which has no ``__init__.py``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_gather_cases.py"
+    spec = importlib.util.spec_from_file_location("torch_gather_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gather_inputs(seed: int, P: int, K: int, T: int, R: int, device, extremes: bool = False):
+    """(state, pods, cols) on ``device`` for the gather check, from the
+    generator the card tests use (``tests/torch_gather_cases.py``): a
+    seeded [T] state, [P] pods and [P,K] cols with -1 pads, some cols of T
+    and T + 3 (a JAX gather clamps them to row T - 1), invalid rows and
+    pods; with ``extremes`` every int64 plane drawn from the int64
+    extremes, so used + res + pod wraps."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops.schema import (
+        pod_batch_from_arrays,
+        throttle_state_from_arrays,
+    )
+    state, pods, cols = gather_cases().gather_arrays(np.random.default_rng(seed), P, K, T, R,
+                                                     extremes)
+    return (throttle_state_from_arrays(state, device=device),
+            pod_batch_from_arrays(pods, device=device), torch.from_numpy(cols).to(device))
+
+
 # --------------------------------------------------------------- measures
 
 
@@ -201,6 +248,66 @@ def compare(pre, pods, mask, on_equal: bool, step3: bool, got=None):
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     counts = torch.bincount((want.flatten().to(torch.int64) + 1), minlength=5).tolist()
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0, counts
+
+
+def compare_gather(state, pods, cols, on_equal: bool, step3: bool):
+    """(mismatching outputs, max |kernel - plain|, per-status counts) of the
+    check_gather kernel, both forms, against its plain version on the same
+    device tensors."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    got_s = cg.check_gather(state, pods, cols, on_equal, step3, statuses=True)
+    got_c, got_b = cg.check_gather(state, pods, cols, on_equal, step3)
+    want_s = cg.check_gather_reference(state, pods, cols, on_equal, step3, statuses=True)
+    want_c, want_b = cg.check_gather_reference(state, pods, cols, on_equal, step3)
+    bad = (int((got_s != want_s).sum()) + int((got_c != want_c).sum())
+           + int((got_b != want_b).sum()))
+    bad += sum(g.dtype != w.dtype for g, w in ((got_s, want_s), (got_c, want_c), (got_b, want_b)))
+    err = 0
+    for g, w in ((got_s, want_s), (got_c, want_c)):
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    counts = torch.bincount(want_s.flatten().to(torch.int64) + 1, minlength=5).tolist()
+    return bad, err, counts
+
+
+def gather_bound(state, pods, cols):
+    """Least time of the gather check's counts form on these inputs, as a
+    dict (the keys of ``dense_bound``), counting only what this run's data
+    needs. Bytes, each read or written once: cols; the pods' valid flags and
+    presence planes, and a request only where it is present; the valid flag
+    of each row that a valid pod's col names; the count side of each such
+    valid row (3 int64, 4 bool planes); the 3 int64 and 5 bool planes of
+    each (row, dim) that a live slot's pod requests nonzero (a dim the pod
+    does not request cannot change its status); counts and schedulable.
+    Operations: per live slot (col >= 0, row valid, pod valid) the count
+    side's two s64 adds and three compares, and per live slot and dim the
+    pod requests nonzero, two s64 adds and three compares; an s64 op is two
+    32-bit ones."""
+    import torch
+
+    P, K = cols.shape
+    T, R = state.thr_req.shape
+    c = cols.long().clamp(0, T - 1)
+    named = (cols >= 0) & pods.valid[:, None]  # [P,K]
+    live = named & state.valid[c]
+    nz = pods.req_present & (pods.req != 0)  # [P,R]
+    pairs = torch.zeros((T, R), dtype=torch.bool, device=cols.device)
+    for r in range(R):
+        pairs[c[live & nz[:, r, None]], r] = True
+    rows = int(torch.unique(c[named]).numel())
+    live_rows = int(torch.unique(c[live]).numel())
+    n_pairs = int(pairs.sum())
+    nbytes = (P * K * 4 + P * (1 + R) + 8 * int(pods.req_present.sum())
+              + rows + live_rows * (3 * 8 + 4) + n_pairs * (3 * 8 + 5) + P * 17)
+    ops = int((live.sum(1) * (1 + nz.sum(1))).sum()) * 5 * 2
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes, "int32_ops": ops,
+            "rows": rows, "row_dims": n_pairs}
 
 
 def cuda_ms(fn, iters: int, flush_bytes: int = 0) -> float:
@@ -294,20 +401,21 @@ def dense_bound(pre, pods, mask, chunk: int = 16384):
     }
 
 
-def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on the kernel's source with the loader's
+def start_ptxas_report(name: str):
+    """Start ``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` with the loader's
     flags, into a scratch library under ``build/kernels/``; returns
-    (process, scratch path)."""
+    (process, scratch path, expected instantiations)."""
     from kube_throttler_tpu_torch import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / f"ptxas-report-{os.getpid()}.so"
+    out = kernels.BUILD_DIR / f"ptxas-report-{name}-{os.getpid()}.so"
     cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-           str(kernels.CSRC / "check_dense.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+           str(kernels.CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, PTXAS_INSTANTIATIONS[name]
 
 
-def finish_ptxas_report(proc, out):
+def finish_ptxas_report(proc, out, expected: int):
     """[{kernel, registers, static_smem, stack, spill_stores, spill_loads}]
     for each kernel instantiation in ptxas' report."""
     text, _ = proc.communicate(timeout=600)
@@ -331,18 +439,24 @@ def finish_ptxas_report(proc, out):
             current.update(registers=int(m.group(1)), static_smem=int(smem.group(1)) if smem else 0)
     rows = [{"kernel": instantiation(m), **f} for m, f in info.items()
             if instantiation(m) and "registers" in f]
-    check(len(rows) == 12, f"ptxas reported {len(rows)} of 12 kernel instantiations")
+    check(len(rows) == expected,
+          f"ptxas reported {len(rows)} of {expected} kernel instantiations")
     return sorted(rows, key=lambda r: r["kernel"])
 
 
 def instantiation(mangled: str):
-    """``reg<on_equal=0,step3_on_equal=1,RB=8>`` for a kernel's mangled
-    name, None for any other symbol."""
+    """``reg<on_equal=0,step3_on_equal=1,RB=8>`` (check_dense) or
+    ``gather<on_equal=0,step3_on_equal=1,statuses=0>`` (check_gather) for a
+    kernel's mangled name, None for any other symbol."""
     k = re.search(r"check_dense_(reg|smem)ILb([01])ELb([01])E(?:Li(\d+)E)?", mangled)
-    if k is None:
-        return None
-    route, oe, s3, rb = k.groups()
-    return f"{route}<on_equal={oe},step3_on_equal={s3}" + (f",RB={rb}>" if rb else ">")
+    if k is not None:
+        route, oe, s3, rb = k.groups()
+        return f"{route}<on_equal={oe},step3_on_equal={s3}" + (f",RB={rb}>" if rb else ">")
+    k = re.search(r"check_gather_kernelILb([01])ELb([01])ELb([01])E", mangled)
+    if k is not None:
+        oe, s3, st = k.groups()
+        return f"gather<on_equal={oe},step3_on_equal={s3},statuses={st}>"
+    return None
 
 
 def sass_counts(library: str):
@@ -472,8 +586,9 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
 
 def drive_main_path(plugin, calls: int, sample: int, seed: int):
     """run_pending_once, prewarm, then ``calls`` × pre_filter_batch with
-    the kernel launch count zeroed just before and read just after."""
+    the kernels' launch counts zeroed just before and read just after."""
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import check_gather as cg
     from kube_throttler_tpu_torch.utils.gchygiene import freeze_startup_heap
 
     dm = plugin.device_manager
@@ -493,18 +608,18 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         return phase_total(plugin, phase)
 
     per_call, routes, out = [], [], None
-    cd.launches = 0
+    cd.launches = cg.launches = 0
     for _ in range(calls):
         d0, m0, l0 = split("batch_dispatch"), split("batch_merge"), cd.launches
-        x0 = split("batch_dedupe")
+        x0, g0 = split("batch_dedupe"), cg.launches
         t0 = time.perf_counter()
         out = plugin.pre_filter_batch()
         dt = time.perf_counter() - t0
         d1, m1, x1 = split("batch_dispatch"), split("batch_merge"), split("batch_dedupe")
         per_call.append((dt, d1[0] - d0[0], m1[0] - m0[0], d1[1] - d0[1],
-                         cd.launches - l0, x1[0] - x0[0]))
+                         cd.launches - l0, x1[0] - x0[0], cg.launches - g0))
         routes.append(dict(dm.last_batch_routes))
-    launches = cd.launches
+    launches, gather_launches = cd.launches, cg.launches
 
     pods = plugin.listers.pods.list()
     rng = random.Random(seed + 1)
@@ -530,6 +645,7 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
     }
     return dict(
         shapes=shapes, per_call=per_call, routes=routes, launches=launches,
+        gather_launches=gather_launches,
         breaker=dm.breaker_state(), n_verdicts=len(out["schedulable"]),
         errors=len(out["errors"]), oracle_n=len(probe), oracle_mismatches=mismatches,
         tally=tally, cluster_tally=cl_tally, verdicts=out["schedulable"],
@@ -553,27 +669,30 @@ def written_used(store):
 
 def tick_once(plugin, label: str, verdicts):
     """One ``plugin.full_tick_sharded(1)``, its phase split, check_dense
-    launches and peak device memory on a line; fails unless it ran on the
-    1×1 grid, launched the kernel, agrees with ``verdicts`` for every pod
-    and with the written used counts of every throttle."""
+    and check_gather launches and peak device memory on a line; fails
+    unless it ran on the 1×1 grid, launched both kernels, agrees with
+    ``verdicts`` for every pod and with the written used counts of every
+    throttle."""
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import check_gather as cg
 
     before = {ph: phase_total(plugin, ph)[0] for ph in TICK_PHASES}
-    l0 = cd.launches
+    l0, g0 = cd.launches, cg.launches
     torch.cuda.reset_peak_memory_stats()
     out = plugin.full_tick_sharded(1)
-    launched = cd.launches - l0
+    launched, gathered = cd.launches - l0, cg.launches - g0
     peak = torch.cuda.max_memory_allocated()
     split = {f"{ph}_ms": f"{(phase_total(plugin, ph)[0] - before[ph]) * 1e3:.3f}"
              for ph in TICK_PHASES}
     routes = plugin.device_manager.last_tick
     say("tick", call=label, **split, check_dense_launches=launched,
-        mesh=json.dumps(out["mesh"]), max_memory_allocated=peak,
-        routes=json.dumps(routes, sort_keys=True))
+        check_gather_launches=gathered, mesh=json.dumps(out["mesh"]),
+        max_memory_allocated=peak, routes=json.dumps(routes, sort_keys=True))
     check(out["mesh"] == [1, 1], f"tick {label} ran on mesh {out['mesh']}")
     check(launched >= 1, f"check_dense was not launched in tick {label}")
+    check(gathered >= 1, f"check_gather was not launched in sparse tick {label}")
     check(routes["throttle"]["route"] == "sparse" and routes["clusterthrottle"]["route"] == "dense",
           f"unexpected tick routes {routes}")
     check(out["errors"] == [] and len(out["schedulable"]) == N_PODS, "tick verdicts missing")
@@ -623,13 +742,14 @@ def drive_tick(plugin, verdicts, calls: int):
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import check_gather as cg
     from kube_throttler_tpu_torch.parallel import make_mesh
 
     dm = plugin.device_manager
-    cd.launches = 0
+    cd.launches = cg.launches = 0
     for i in range(calls):
         tick_once(plugin, str(i), verdicts)
-    launches = cd.launches
+    launches, gather_launches = cd.launches, cg.launches
 
     t0 = time.perf_counter()
     edited = edit_overrides(plugin)
@@ -667,18 +787,21 @@ def drive_tick(plugin, verdicts, calls: int):
     check(all(r["route"] == "dense" for r in dense_routes.values()), "dense tick took the sparse route")
     check(dense_launches == 2, f"the dense tick launched check_dense {dense_launches} times")
     check(same, "the dense tick disagrees with the sparse tick")
-    time_tick_parts(dm)
-    return dict(launches=launches, dense_launches=dense_launches, dense_s=t_dense,
-                dense_peak=dense_peak)
+    return dict(launches=launches, gather_launches=gather_launches,
+                dense_launches=dense_launches, dense_s=t_dense, dense_peak=dense_peak,
+                gather=time_tick_parts(dm))
 
 
 def time_tick_parts(dm):
     """CUDA-event times of the Throttle kind's sparse tick parts at the
-    main path's own state (L2 flushed before each timed call)."""
+    main path's own state (L2 flushed before each timed call), with
+    check_gather held against its plain version on that state first.
+    Returns check_gather's numbers for the kernels line."""
     from datetime import datetime, timezone
 
     import torch
 
+    from kube_throttler_tpu_torch.ops import check_gather as cg
     from kube_throttler_tpu_torch.ops.aggregate import throttled_flags
     from kube_throttler_tpu_torch.ops.check import check_pods_gather
     from kube_throttler_tpu_torch.ops.overrides import _datetime_to_ns, calculate_thresholds
@@ -696,6 +819,8 @@ def time_tick_parts(dm):
     used_cnt, used_req, contrib = sharded.used_from_cols(pods, cols, counted, T)
     state, _, _ = sharded._derived_state(sched, now_ns, used_cnt, used_req, contrib,
                                          *res, thr_valid)
+    bad, err, status_counts = compare_gather(state, pods, cols, False, True)
+    check(bad == 0, "check_gather disagrees with its plain version at the tick's state")
     flush = 64 << 20
     parts = {
         "calculate_thresholds_ms": cuda_ms(lambda: calculate_thresholds(sched, now_ns), 20, flush),
@@ -704,22 +829,64 @@ def time_tick_parts(dm):
         "throttled_flags_ms": cuda_ms(lambda: throttled_flags(
             *thr, used_cnt, used_cnt > 0, used_req, contrib > 0), 20, flush),
         "check_pods_gather_ms": cuda_ms(lambda: check_pods_gather(
-            state, pods, cols, on_equal=False, step3_on_equal=True), 20, flush),
+            state, pods, cols, on_equal=False, step3_on_equal=True), 50, flush),
+        "check_gather_statuses_ms": cuda_ms(lambda: cg.check_gather(
+            state, pods, cols, False, True, statuses=True), 50, flush),
+        "plain_ms": cuda_ms(lambda: cg.check_gather_reference(state, pods, cols, False, True),
+                            20, flush),
         "full_update_step_gather_ms": cuda_ms(lambda: sharded.full_update_step_gather(
             sched, pods, cols, counted, *res, thr_valid, now_ns), 20, flush),
     }
     P, K = cols.shape
     R = pods.req.shape[1]
-    # check_pods_gather's bytes bound: cols and the pod planes read once,
-    # each throttle row these cols reference read once (threshold, used and
-    # reserved as int64 with 5 bool planes, per row and per dim), counts
-    # and verdicts written once
-    rows = int(torch.unique(cols[cols >= 0]).numel())
-    nbytes = P * K * 4 + P * (R * 9 + 1) + rows * (1 + R) * (3 * 8 + 5) + P * 17
-    parts["check_pods_gather_bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+    bound = gather_bound(state, pods, cols)
+    parts["check_pods_gather_bound_ms"] = bound["bound_ms"]
     say("time", route="throttle-tick", shape=f"{P}x{K}x{R} (T={T}, "
-        f"O={sched.ov_valid.shape[1]}, rows={rows})",
-        **{k: f"{v:.5f}" for k, v in parts.items()}, l2="flushed")
+        f"O={sched.ov_valid.shape[1]}, rows={bound['rows']}, row_dims={bound['row_dims']})",
+        **{k: f"{v:.5f}" for k, v in parts.items()}, bound_by=bound["bound_by"],
+        bytes_ms=f"{bound['bytes_ms']:.5f}", ops_ms=f"{bound['ops_ms']:.5f}",
+        bound_bytes=bound["bytes"], kernel_vs_plain_mismatches=bad, status_counts=status_counts, l2="flushed")
+    return dict(ms=parts["check_pods_gather_ms"], statuses_ms=parts["check_gather_statuses_ms"],
+                plain_ms=parts["plain_ms"], step_ms=parts["full_update_step_gather_ms"],
+                shape=[P, K, T, R], err=err, mismatches=bad, **bound)
+
+
+def drive_coalesce(plugin, seed: int):
+    """The ``[coalesce]`` phase: ``check_pods_multi`` over COALESCE_PODS
+    stored pods per kind, on the device route (forced) against the host
+    route, with the check_gather launch count read around each device
+    call: one launch per kind per call."""
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    dm = plugin.device_manager
+    pods = random.Random(seed).sample(plugin.listers.pods.list(), COALESCE_PODS)
+    forced = dm._single_check_device  # noqa: SLF001 — the route's switch
+    out = {}
+    try:
+        for kind in ("throttle", "clusterthrottle"):
+            dm._single_check_device = False
+            t0 = time.perf_counter()
+            host = dm.check_pods_multi(pods, kind)
+            t_host = time.perf_counter() - t0
+            dm._single_check_device = True
+            l0 = cg.launches
+            t0 = time.perf_counter()
+            device = dm.check_pods_multi(pods, kind)
+            t_dev = time.perf_counter() - t0
+            launched = cg.launches - l0
+            same = device == host
+            affected = sum(len(r) for r in host)
+            say("coalesce", kind=kind, pods=len(pods), equal_to_host=same,
+                check_gather_launches=launched, host_ms=f"{t_host * 1e3:.3f}",
+                device_ms=f"{t_dev * 1e3:.3f}", affected_slots=affected,
+                blocked=sum(any(v != "not-throttled" for v in r.values()) for r in host))
+            check(same, f"check_pods_multi on the device route disagrees with the host ({kind})")
+            check(launched == 1, f"check_gather launched {launched} times for one {kind} call")
+            check(affected > 0, f"no {kind} matched any of the sampled pods")
+            out[kind] = launched
+    finally:
+        dm._single_check_device = forced
+    return out
 
 
 # --------------------------------------------------------------- gang admission
@@ -1041,6 +1208,7 @@ def run() -> int:
     import torch
 
     from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import check_gather as cg
     from kube_throttler_tpu_torch.ops import victim_select as vsel
     from kube_throttler_tpu_torch.ops.check import statuses_to_compact
     from kube_throttler_tpu_torch.ops.fastcheck import precompute_check_state
@@ -1054,25 +1222,32 @@ def run() -> int:
         python=sys.version.split()[0], devices=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    # every kernel's nvcc and the ptxas report's, all started together
-    ptxas = start_ptxas_report()
+    # every kernel's nvcc and the ptxas reports', all started together
+    ptxas = [start_ptxas_report(name) for name in PTXAS_INSTANTIATIONS]
     try:
-        with ThreadPoolExecutor(1) as pool:
-            v_build = pool.submit(vsel.load_library)
+        with ThreadPoolExecutor(2) as pool:
+            builds = {"victim_select": pool.submit(vsel.load_library),
+                      "check_gather": pool.submit(cg.load_library)}
             lib = cd.load_library()
             say("build", kernel="check_dense", seconds=f"{time.perf_counter() - t0:.2f}",
                 library=lib._name)
-            vlib = v_build.result()
-            say("build", kernel="victim_select", seconds=f"{time.perf_counter() - t0:.2f}",
-                library=vlib._name)
-        ptxas_rows = finish_ptxas_report(*ptxas)
+            libs = {"check_dense": lib}
+            for name, fut in builds.items():
+                libs[name] = fut.result()
+                say("build", kernel=name, seconds=f"{time.perf_counter() - t0:.2f}",
+                    library=libs[name]._name)
+        ptxas_rows = []
+        for name, report in zip(PTXAS_INSTANTIATIONS, ptxas):
+            rows = finish_ptxas_report(*report)
+            sass = sass_counts(libs[name]._name)
+            for row in rows:
+                row.update(sass.get(row["kernel"], {}))
+            ptxas_rows += rows
     finally:
-        if ptxas[0].poll() is None:
-            ptxas[0].kill()
-            ptxas[0].wait()
-    sass = sass_counts(lib._name)
-    for row in ptxas_rows:
-        row.update(sass.get(row["kernel"], {}))
+        for proc, _, _ in ptxas:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     say("ptxas", seconds=f"{time.perf_counter() - t0:.2f}", kernels=json.dumps(ptxas_rows))
 
     # -- kernel against its plain version: every variant at every shape
@@ -1090,6 +1265,24 @@ def run() -> int:
                 mismatches=bad, status_counts=counts, geometry=json.dumps(geometry._asdict()))
             check(bad == 0, f"check_dense disagrees with its plain version at {label}")
     del cases
+
+    # -- check_gather against its plain version: every cell, variant and form
+    g_err = g_bad = 0
+    # the card tests' cells and seeds (tests/test_torch_cuda.py), then the tick's
+    cases_mod = gather_cases()
+    gcases = [("extremes", (500, 16, 40, 3), 9, True)] + [
+        ("x".join(map(str, cell)), cell, seed, False)
+        for cell, seed in [cases_mod.gather_cell(K, R, card=True) for K, R in cases_mod.LADDER]
+        + [(GATHER_TICK_CELL, SEED + 6)]]
+    for label, (P, K, T, R), seed, ext in gcases:
+        case = gather_inputs(seed, P, K, T, R, "cuda", extremes=ext)
+        for on_equal, step3 in VARIANTS:
+            bad, err, counts = compare_gather(*case, on_equal, step3)
+            g_err, g_bad = max(g_err, err), g_bad + bad
+            say("compare-gather", shape=label, on_equal=on_equal, step3_on_equal=step3,
+                mismatches=bad, status_counts=counts, geometry=json.dumps(cg._launch_shape(P)))
+            check(bad == 0, f"check_gather disagrees with its plain version at {label}")
+    del case
     torch.cuda.empty_cache()
 
     # -- the full-width main path
@@ -1099,15 +1292,18 @@ def run() -> int:
         clusterthrottles=N_CLUSTER, seconds=f"{time.perf_counter() - t0:.1f}")
     try:
         res = drive_main_path(plugin, N_CALLS, ORACLE_SAMPLE, SEED)
-        for i, (dt, disp, merge, nd, nl, dedupe) in enumerate(res["per_call"]):
+        for i, (dt, disp, merge, nd, nl, dedupe, ng) in enumerate(res["per_call"]):
             say("pre_filter_batch", call=i, ms=f"{dt * 1e3:.3f}",
                 batch_dedupe_ms=f"{dedupe * 1e3:.3f}",
                 batch_dispatch_ms=f"{disp * 1e3:.3f}", batch_merge_ms=f"{merge * 1e3:.3f}",
-                check_dense_launches=nl, routes=json.dumps(res["routes"][i], sort_keys=True))
+                check_dense_launches=nl, check_gather_launches=ng,
+                routes=json.dumps(res["routes"][i], sort_keys=True))
             check(nd == 1, "pre_filter_batch did not take the device batch path")
             check(nl >= 1, f"check_dense was not launched in call {i}")
+            check(ng >= 1, f"check_gather was not launched in call {i}")
         say("main-path-checks", shapes=json.dumps(res["shapes"], sort_keys=True),
-            check_dense_launches=res["launches"], breaker=res["breaker"],
+            check_dense_launches=res["launches"], check_gather_launches=res["gather_launches"],
+            breaker=res["breaker"],
             verdicts=res["n_verdicts"], errors=res["errors"],
             oracle_sample=res["oracle_n"], oracle_mismatches=res["oracle_mismatches"],
             tally=json.dumps(res["tally"]), clusterthrottle_tally=json.dumps(res["cluster_tally"]))
@@ -1115,6 +1311,7 @@ def run() -> int:
             check(r == {"throttle": "sparse", "clusterthrottle": "dense"},
                   f"unexpected batch routes {r}")
         check(res["launches"] >= N_CALLS, "check_dense was not launched on every call")
+        check(res["gather_launches"] >= N_CALLS, "check_gather was not launched on every call")
         check(res["breaker"] == "closed", f"breaker is {res['breaker']}")
         check(res["n_verdicts"] == N_PODS and res["errors"] == 0, "verdicts missing")
         check(res["oracle_n"] >= 2000 and res["oracle_mismatches"] == 0,
@@ -1132,10 +1329,24 @@ def run() -> int:
         bad, err, _ = compare(pre, pods, mask, False, False)
         check(bad == 0, "check_dense disagrees with its plain version on the main path")
         max_err, mismatches = max(max_err, err), mismatches + bad
+        # check_gather on the Throttle kind's written state, as dispatched
+        with dm._lock:  # noqa: SLF001
+            t_state = dm.throttle.device_state()
+            t_pods, _ = dm.throttle.device_pods(need_mask=False)
+            t_cols = dm.throttle.device_cols()
+        bad, err, _ = compare_gather(t_state, t_pods, t_cols, False, True)
+        check(bad == 0, "check_gather disagrees with its plain version on the main path")
+        g_err, g_bad = max(g_err, err), g_bad + bad
+        del t_state, t_pods, t_cols
+
+        # -- the coalescer's device route (check_pods_multi) ≡ its host route
+        coalesce = drive_coalesce(plugin, SEED + 7)
 
         # -- the reconcile tick over the same cluster
         tick = drive_tick(plugin, res.pop("verdicts"), N_TICKS)
         check(tick["launches"] >= N_TICKS, "check_dense was not launched on every tick")
+        check(tick["gather_launches"] >= N_TICKS, "check_gather was not launched on every tick")
+        g_err, g_bad = max(g_err, tick["gather"]["err"]), g_bad + tick["gather"]["mismatches"]
 
         # -- gang admission, victim selection and preemption, same cluster
         drive_gang(plugin, SEED + 4)
@@ -1248,6 +1459,26 @@ def run() -> int:
         "shape": preempt["shape"],
         "rows_walked": preempt["bound"]["rows_walked"],
         "cells": victim_rows,
+    }, {
+        "name": "check_gather",
+        "route": "cuda",
+        "source": f"{PORT}/csrc/check_gather.cu",
+        "replaces": "kube_throttler_tpu/ops/check.py:228",
+        "launches": res["gather_launches"],
+        "tick_launches": tick["gather_launches"],
+        "coalesce_launches": coalesce,
+        "max_abs_err": g_err,
+        "mismatches": g_bad,
+        "ms": tick["gather"]["ms"],
+        "plain_ms": tick["gather"]["plain_ms"],
+        "bound_ms": tick["gather"]["bound_ms"],
+        "bound_by": tick["gather"]["bound_by"],
+        "library_ms": None,
+        "shape": tick["gather"]["shape"],
+        "statuses_ms": tick["gather"]["statuses_ms"],
+        "bytes_ms": tick["gather"]["bytes_ms"],
+        "ops_ms": tick["gather"]["ops_ms"],
+        "full_update_step_gather_ms": tick["gather"]["step_ms"],
     }]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -27,7 +27,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from .check import resolve_statuses, statuses_to_compact
+from .classify import resolve_statuses, statuses_to_compact
 from .schema import PodBatch, ThrottleState
 
 

@@ -35,15 +35,22 @@ Group totals materialize as [G,T]/[G,T,R] scatter-adds — G is a small
 per-tick batch, so the footprint is G× the throttle state, not P×T.
 
 Where torch differs from JAX: a gather raises on an out-of-range index
-where JAX clamps, so the -1 pads are clamped to column 0 and masked by
-``slot``; the per-group ``.at[].max`` becomes an int32 ``scatter_reduce_``
-("amax"; there is no bool scatter) and the segment sums int64
-``index_put_(accumulate=True)``, exact in any order. No float appears.
+where JAX clamps, and a scatter raises where JAX drops it. So a col is
+clamped into [0, T) for every index (the -1 pads read column 0 and are
+masked by ``slot``; a col >= T reads row T - 1), and the group totals
+scatter a zero for a col >= T: a zero added to a sum, or a 0 flag in a
+max over 0/1 flags, leaves the target as JAX's dropped update does. The
+per-group ``.at[].max`` becomes an int32
+``scatter_reduce_`` ("amax"; there is no bool scatter) and the segment
+sums int64 ``index_put_(accumulate=True)``, exact in any order. No float
+appears.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .aggregate import _gather_ids
 
 
 def _group_max(num_rows: int, index: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
@@ -83,7 +90,8 @@ def _gang_classify(
     G = num_groups
     T = thr_valid.shape[0]
     R = pod_req.shape[1]
-    c = cols.long().clamp_min(0)  # [N,K]
+    cm = cols.long().clamp_min(0)  # [N,K]: JAX's jnp.maximum(cols, 0)
+    c = _gather_ids(cm, T)  # a col >= T reads row T - 1
     gid = gid.long()
     slot = (cols >= 0) & thr_valid[c] & member_valid[:, None]  # [N,K]
     gclass = gclass.long()
@@ -116,11 +124,13 @@ def _gang_classify(
     g_active = _group_max(G, gid, torch.any(active_slot, dim=1))
 
     # --- group totals per (group, col): segment-sum scatter ---------------
+    # a slot whose col is >= T scatters zeros: JAX drops that update
+    scat = slot & (cm < T)
     gid2 = gid[:, None].expand_as(c)  # [N,K]
     g_cnt = torch.zeros((G, T), dtype=torch.int64, device=pod_req.device).index_put_(
-        (gid2, c), slot.to(torch.int64), accumulate=True
+        (gid2, c), scat.to(torch.int64), accumulate=True
     )
-    slot_req = torch.where(slot[:, :, None], pod_req[:, None, :],
+    slot_req = torch.where(scat[:, :, None], pod_req[:, None, :],
                            torch.zeros((), dtype=torch.int64, device=pod_req.device))
     g_req = torch.zeros((G, T, R), dtype=torch.int64, device=pod_req.device).index_put_(
         (gid2, c), slot_req, accumulate=True
@@ -128,7 +138,7 @@ def _gang_classify(
     # the [G,T,R] max: index_put_ has no max, so scatter over a [G*T, R] view
     g_nz = _group_max(
         G * T, (gid2 * T + c).reshape(-1),
-        (slot[:, :, None] & pod_nonzero[:, None, :]).reshape(-1, R),
+        (scat[:, :, None] & pod_nonzero[:, None, :]).reshape(-1, R),
     ).reshape(G, T, R)
     affected = g_cnt > 0  # [G,T]
 

@@ -10,7 +10,8 @@ a full reconcile pass fused with a full PreFilter sweep.
   route of the batch check (``precompute_check_state`` → the
   hand-written ``check_dense`` kernel → ``statuses_to_compact``).
 - ``full_update_step_gather`` is the sparse form over the [P,K] matched
-  cols: an int64 scatter-add of the used sums and ``check_pods_gather``.
+  cols: an int64 scatter-add of the used sums and ``check_pods_gather``
+  (the hand-written ``check_gather`` kernel).
   No [P,T] tensor exists anywhere.
 
 The JAX package runs the same bodies inside ``shard_map`` with two psums;

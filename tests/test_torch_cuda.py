@@ -18,7 +18,12 @@ not installed:
   shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``;
 - the victim_select kernel ≡ its plain version (shared-memory and
   device-memory routes, caps), a refused launch raises, and
-  ``gang_check_groups`` on ``device="cuda"`` ≡ ``"cpu"``.
+  ``gang_check_groups`` on ``device="cuda"`` ≡ ``"cpu"``;
+- the check_gather kernel ≡ its plain version (K in {4, 32, 64, 2048} ×
+  R in {3, 8, 16, 20}, all four variants, both forms, int64 extremes, pads,
+  invalid rows and pods, cols >= T), a refused launch raises, and the
+  wrapper enqueues the outputs' ``torch.empty`` and nothing else besides
+  its one launch.
 """
 
 import dataclasses
@@ -35,8 +40,9 @@ from kube_throttler_tpu_torch.ops.schema import (
     throttle_state_from_arrays,
 )
 
-EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
-            2**63 - 1, -(2**63), 123456789012345, -987654321098765]
+# by its own name (pytest puts tests/ on the path): a package named ``tests``
+# installed elsewhere would shadow this directory
+from torch_gather_cases import EXTREMES, gather_arrays, gather_cell
 
 
 @pytest.fixture
@@ -389,3 +395,96 @@ def test_gang_check_groups_on_card_matches_cpu(card):
     assert got.device_manager.breaker_state() == "closed"
     got.stop()
     want.stop()
+
+
+def _gather_case(rng, P, K, T, R, device, extremes=False):
+    """``gather_arrays`` on ``device``, through the carry-across."""
+    state, pods, cols = gather_arrays(rng, P, K, T, R, extremes)
+    return (throttle_state_from_arrays(state, device=device),
+            pod_batch_from_arrays(pods, device=device), torch.from_numpy(cols).to(device))
+
+
+def _assert_gather_kernel_matches_plain(state, pods, cols, on_equal, step3):
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    before = cg.launches
+    got = cg.check_gather(state, pods, cols, on_equal, step3, statuses=True)
+    counts, sched = cg.check_gather(state, pods, cols, on_equal, step3)
+    torch.cuda.synchronize()
+    assert cg.launches == before + 2
+    want = cg.check_gather_reference(state, pods, cols, on_equal, step3, statuses=True)
+    w_counts, w_sched = cg.check_gather_reference(state, pods, cols, on_equal, step3)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert counts.dtype == torch.int32 and torch.equal(counts, w_counts)
+    assert sched.dtype == torch.bool and torch.equal(sched, w_sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 32, 64, 2048])
+@pytest.mark.parametrize("R", [3, 8, 16, 20])
+def test_gather_kernel_matches_plain(card, K, R):
+    (P, K, T, R), seed = gather_cell(K, R, card=True)
+    case = _gather_case(np.random.default_rng(seed), P, K, T, R, card)
+    for on_equal, step3 in VARIANTS:
+        _assert_gather_kernel_matches_plain(*case, on_equal, step3)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_extremes_and_edges(card):
+    """int64 extremes (used + res + pod wraps), a pod whose every slot is a
+    pad, and a single-slot, single-pod call."""
+    rng = np.random.default_rng(9)
+    cases = [_gather_case(rng, 500, 16, 40, 3, card, extremes=True),
+             _gather_case(rng, 1, 1, 1, 1, card)]
+    state, pods, cols = _gather_case(rng, 33, 5, 9, 2, card)
+    cols[0] = -1
+    cases.append((state, pods, cols))
+    for case in cases:
+        for on_equal, step3 in VARIANTS:
+            _assert_gather_kernel_matches_plain(*case, on_equal, step3)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_launch_failure_raises(card, monkeypatch):
+    """A launch the kernel's entry refuses (2048 threads, through the
+    geometry hook: a nonzero cudaError_t) raises KernelLaunchError and
+    counts no launch."""
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    state, pods, cols = _gather_case(np.random.default_rng(4), 64, 8, 40, 2, card)
+    monkeypatch.setattr(cg, "_launch_shape", lambda P: (2048, P))
+    before = cg.launches
+    with pytest.raises(cd.KernelLaunchError, match="cudaError"):
+        cg.check_gather(state, pods, cols)
+    assert cg.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("statuses", [False, True])
+def test_check_gather_enqueues_one_kernel(card, statuses):
+    """Besides its launch, the wrapper runs no torch op on the card but the
+    outputs' allocations: the variant, the form and used + reserved are the
+    kernel's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    state, pods, cols = _gather_case(np.random.default_rng(3), 300, 32, 100, 8, card)
+    cg.check_gather(state, pods, cols)  # build and load outside the record
+    before = cg.launches
+    with Record() as rec:
+        got = cg.check_gather(state, pods, cols, True, False, statuses=statuses)
+    assert rec.ops == ["aten.empty.memory_format"] * (1 if statuses else 2)
+    assert cg.launches == before + 1
+    want = cg.check_gather_reference(state, pods, cols, True, False, statuses=statuses)
+    for g, w in zip((got,) if statuses else got, (want,) if statuses else want):
+        assert torch.equal(g, w)

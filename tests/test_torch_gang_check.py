@@ -139,6 +139,34 @@ def test_gang_check_single_kind_and_edge_slots():
     assert bool(got[0][5])  # the empty group fits
 
 
+@pytest.mark.parametrize("past", [0, 3])
+def test_gang_check_cols_at_or_past_t_match_jax(past):
+    """Fault (h): cols of T, T + 3 and -1 in both kinds. JAX's gathers clamp
+    a col >= T to row T - 1 and its scatters drop it; the port raised
+    IndexError before."""
+    import jax.numpy as jnp
+
+    kinds, gclass, gvalid, G = _problem(0)
+    T = kinds[0]["thr_valid"].shape[0]
+    for k in kinds:
+        k["cols"] = k["cols"].copy()
+        k["cols"][::3, 0] = T + past
+        k["cols"][1::3, 1] = T + 3
+        k["cols"][2::3, 2] = -1
+        k["thr_valid"] = k["thr_valid"].copy()
+        k["thr_valid"][T - 1] = True
+    want_ok, want = jgc.gang_check_both(_jax(kinds[0]), _jax(kinds[1]), jnp.asarray(gclass),
+                                        jnp.asarray(gvalid), num_groups=G)
+    got_ok, got = tgc.gang_check_both(_torch(kinds[0]), _torch(kinds[1]),
+                                      torch.from_numpy(gclass), torch.from_numpy(gvalid),
+                                      num_groups=G)
+    assert got_ok.dtype == torch.bool
+    assert np.array_equal(got_ok.numpy(), np.asarray(want_ok))
+    for g_kind, w_kind in zip(got, want):
+        for g, w, dt in zip(g_kind, w_kind, OUT_DTYPES):
+            assert g.dtype == dt and np.array_equal(g.numpy(), np.asarray(w))
+
+
 # ------------------------------------------------ store-level parity
 
 

@@ -17,6 +17,7 @@ from kube_throttler_tpu.ops import check as jcheck
 from kube_throttler_tpu.ops import fastcheck as jfast
 from kube_throttler_tpu.ops import schema as jschema
 from kube_throttler_tpu_torch.ops import check as tcheck
+from kube_throttler_tpu_torch.ops import check_gather as cg
 from kube_throttler_tpu_torch.ops import fastcheck as tfast
 from kube_throttler_tpu_torch.ops import schema as tschema
 
@@ -188,7 +189,7 @@ def test_gather_forms_match_jax(kind, on_equal, chunk, monkeypatch):
     K = int(mask.sum(axis=1).max()) + 3  # extra -1 pad slots on every row
     cols = _cols_from_mask(mask, K)
     if chunk is not None:
-        monkeypatch.setattr(tcheck, "_GATHER_CHUNK_ELEMS", chunk * K * ts.num_dims // 10)
+        monkeypatch.setattr(cg, "_GATHER_CHUNK_ELEMS", chunk * K * ts.num_dims // 10)
     step3 = True if kind == "throttle" else on_equal
     tcols = torch.from_numpy(cols)
     want = jcheck.check_pods_gather_statuses(js, jp, cols, on_equal=on_equal, step3_on_equal=step3)

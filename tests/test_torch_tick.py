@@ -149,12 +149,12 @@ def test_compact_in_row_blocks_matches_one_block(monkeypatch, cells):
     """``statuses_to_compact`` bounds its int32 temporaries by compacting
     blocks of rows; any block size gives the one-block result and JAX's."""
     from kube_throttler_tpu.ops.check import statuses_to_compact as jcompact
-    from kube_throttler_tpu_torch.ops import check as tcheck
+    from kube_throttler_tpu_torch.ops import classify
 
     statuses = np.random.default_rng(9).integers(-1, 4, (37, 11)).astype(np.int8)
     want = jcompact(statuses)
-    monkeypatch.setattr(tcheck, "_COMPACT_CHUNK_CELLS", cells)
-    got = tcheck.statuses_to_compact(torch.from_numpy(statuses))
+    monkeypatch.setattr(classify, "_COMPACT_CHUNK_CELLS", cells)
+    got = classify.statuses_to_compact(torch.from_numpy(statuses))
     for name, g, w in zip(("counts", "schedulable"), got, want):
         _assert_same(g, w, name)
 
