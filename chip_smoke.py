@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port's main path from ``csrc/`` (into
-the ignored ``build/kernels/``; beside them, ``check_dense.cu`` and
-``check_gather.cu`` once more with ``-Xptxas -v`` for each instantiation's
-registers, shared memory and spills, and their SASS instruction counts),
+the ignored ``build/kernels/``; beside them, each source once more with
+``-Xptxas -v`` for each instantiation's registers, shared memory and
+spills, and their SASS instruction counts),
 holds each kernel against its plain PyTorch version on the card
 (``check_dense``: every onEqual/step-3 variant, both R routes, a throttle
 count past 65,535 blocks of 32; ``check_gather``: every variant and both
@@ -29,7 +29,8 @@ one. Then, on the same cluster: one
 ``gang_check_groups`` over 256 pending gangs (a quarter in an accelerator
 class) must equal the sequential host oracle for every gang; the
 ``victim_select`` kernel must equal its plain version at five (N, M) cells
-and three caps each; and one ``maybe_preempt_gang`` must launch it once,
+and a sixth drawn from the int64 extremes, three caps each; and one
+``maybe_preempt_gang`` must launch it once,
 evict the host oracle's victims and let the gang admit. One line per
 phase; then one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
@@ -38,9 +39,9 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
-Everything runs in this one process (plus ``nvidia-smi``, five ``nvcc``
-processes started together — one per kernel source and two ``-Xptxas -v``
-reports — and ``cuobjdump`` for the instruction counts).
+Everything runs in this one process (plus ``nvidia-smi``, six ``nvcc``
+processes started together — one per kernel source and one ``-Xptxas -v``
+report per source — and ``cuobjdump`` for the instruction counts).
 """
 
 from __future__ import annotations
@@ -91,8 +92,10 @@ SWEEP_SHAPE = (131072, 10240, 8)
 # path's cluster, a quarter of them in GANG_CLASS
 GANGS, GANG_SIZE, GANG_CLASS, GANG_CALLS, GANG_PREFILTER_SAMPLE = 256, 8, "h100", 3, 16
 # victim_select held against its plain version: (candidates N, deficit dims
-# M), each with caps 0, 1 and N / 2
+# M), each with caps 0, 1 and N / 2; then one cell drawn from EXTREMES, with
+# negative contributions, so that the subtraction wraps
 VICTIM_CELLS = ((1, 1), (40, 8), (4096, 64), (65536, 256), (1024, 2500))
+VICTIM_EXTREMES_CELL = (4096, 256)
 # the preemption phase's policy (tests/test_policy.py's) and label group: one
 # whose Throttles and ClusterThrottle are roomy and that no earlier phase edits
 PREEMPT_POLICY = {"name": "smoke", "preemptionEnabled": True, "minPriorityGap": 1}
@@ -104,7 +107,7 @@ GATHER_TICK_CELL = (131072, 32, 16384, 8)
 # the coalescer phase: stored pods per check_pods_multi call
 COALESCE_PODS = 256
 # kernel instantiations ptxas must report per source
-PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 8}
+PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 8, "victim_select": 9}
 EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
             2**63 - 1, -(2**63), 123456789012345, -987654321098765]
 
@@ -445,9 +448,10 @@ def finish_ptxas_report(proc, out, expected: int):
 
 
 def instantiation(mangled: str):
-    """``reg<on_equal=0,step3_on_equal=1,RB=8>`` (check_dense) or
-    ``gather<on_equal=0,step3_on_equal=1,statuses=0>`` (check_gather) for a
-    kernel's mangled name, None for any other symbol."""
+    """``reg<on_equal=0,step3_on_equal=1,RB=8>`` (check_dense),
+    ``gather<on_equal=0,step3_on_equal=1,statuses=0>`` (check_gather) or
+    ``victim<KREG=8,C=1,ring=1>`` (victim_select) for a kernel's mangled name,
+    None for any other symbol."""
     k = re.search(r"check_dense_(reg|smem)ILb([01])ELb([01])E(?:Li(\d+)E)?", mangled)
     if k is not None:
         route, oe, s3, rb = k.groups()
@@ -456,6 +460,9 @@ def instantiation(mangled: str):
     if k is not None:
         oe, s3, st = k.groups()
         return f"gather<on_equal={oe},step3_on_equal={s3},statuses={st}>"
+    k = re.search(r"victim_select_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if k is not None:
+        return "victim<KREG={},C={},ring={}>".format(*k.groups())
     return None
 
 
@@ -1026,10 +1033,18 @@ def drive_gang(plugin, seed: int):
 # --------------------------------------------------------------- victim selection
 
 
-def victim_problem(rng: np.random.Generator, N: int, M: int):
+def victim_problem(rng: np.random.Generator, N: int, M: int, extremes: bool = False):
     """A seeded ranked problem: contrib 90 % zeros, the rest up to 2^40
     milli-units; each deficit a random share of its column's sum (so the
-    walk runs deep), a tenth of the dims already met (<= 0)."""
+    walk runs deep), a tenth of the dims already met (<= 0). With
+    ``extremes`` every value is drawn from EXTREMES (half the contributions
+    zero, about half of the rest negative), so that ``remaining - row``
+    wraps and negative rows reopen met dims."""
+    if extremes:
+        ext = np.array(EXTREMES, dtype=np.int64)
+        contrib = rng.choice(ext, (N, M))
+        contrib[rng.random((N, M)) < 0.5] = 0
+        return contrib, rng.choice(ext, M)
     contrib = rng.integers(0, 2**40, (N, M), dtype=np.int64)
     contrib[rng.random((N, M)) < 0.9] = 0
     share = rng.uniform(0.2, 0.8, M)
@@ -1071,9 +1086,47 @@ def victim_bound(contrib, deficit, cap: int, selected, ok: bool):
             "rows_walked": rows, "takes": int(takes.size)}
 
 
+def victim_geometry(M: int):
+    """The kernel's route and block geometry for M (``_launch_shape``)."""
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    return vsel._launch_shape(M)._asdict()
+
+
+def graph_ms(fn, calls: int, reps: int = 3) -> float:
+    """Mean device time of one ``fn`` call with no host time between the
+    kernels: ``calls`` calls captured in one CUDA graph, replayed ``reps``
+    times, by CUDA events. ``fn`` launches on the current stream only."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm call off the stream being captured
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
 def compare_victim(contrib, deficit, cap: int, iters: int):
     """Kernel against its plain version on the same card tensors: (equal
-    bit for bit, max |remaining difference|, kernel ms, plain ms, bound)."""
+    bit for bit, max |remaining difference|, wrapper ms, kernel-only ms,
+    plain ms, bound, the kernel's outputs). The wrapper's ms is over
+    back-to-back calls, host time included where the host is the slower;
+    the kernel's alone is ``graph_ms`` of the same call. Only the public
+    wrapper and plain version are called, so ``victim_timing.py`` times
+    another checkout's port with this function."""
     import torch
 
     from kube_throttler_tpu_torch.ops import victim_select as vsel
@@ -1086,29 +1139,40 @@ def compare_victim(contrib, deficit, cap: int, iters: int):
     same = all(torch.equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want))
     err = int((got[2] - want[2]).abs().max()) if deficit.size else 0
     k_ms = cuda_ms(lambda: vsel.victim_select(c, d, cap), iters)
+    only_ms = graph_ms(lambda: vsel.victim_select(c, d, cap), iters)
     bound = victim_bound(contrib, deficit, cap, want[0].cpu().numpy(), bool(want[1]))
-    return same, err, k_ms, plain_ms, bound
+    return same, err, k_ms, only_ms, plain_ms, bound, got
 
 
 def drive_victim_cells(seed: int):
     """The ``[victim]`` phase: the kernel against its plain version at every
-    cell of VICTIM_CELLS and cap. Returns per-cell rows for the kernels
-    line and the total mismatches."""
+    cell of VICTIM_CELLS and cap, then at the EXTREMES cell. Returns
+    per-cell rows for the kernels line, the total mismatches and the
+    largest error."""
     rng = np.random.default_rng(seed)
     rows, mismatches, max_err = [], 0, 0
-    for N, M in VICTIM_CELLS:
-        contrib, deficit = victim_problem(rng, N, M)
+    cells = [(N, M, False) for N, M in VICTIM_CELLS] + [(*VICTIM_EXTREMES_CELL, True)]
+    for N, M, extremes in cells:
+        contrib, deficit = victim_problem(rng, N, M, extremes)
+        geometry = victim_geometry(M)
         for cap in sorted({0, 1, N // 2}):
-            same, err, k_ms, p_ms, bound = compare_victim(contrib, deficit, cap,
-                                                          5 if N * M > 10**6 else 20)
+            iters = 5 if N * M > 10**6 else 20
+            same, err, k_ms, bare_ms, p_ms, bound, _ = compare_victim(contrib, deficit, cap,
+                                                                      iters)
             mismatches += not same
             max_err = max(max_err, err)
-            row = {"N": N, "M": M, "cap": cap, "ms": k_ms, "plain_ms": p_ms, **bound}
+            walked = bound["rows_walked"]
+            ns_row = k_ms * 1e6 / walked if walked else None
+            row = {"N": N, "M": M, "cap": cap, "extremes": extremes, "ms": k_ms,
+                   "kernel_only_ms": bare_ms, "plain_ms": p_ms, "ns_per_row": ns_row, **bound,
+                   "geometry": geometry}
             rows.append(row)
-            say("victim", N=N, M=M, cap=cap, equal=same, kernel_ms=f"{k_ms:.5f}",
-                plain_ms=f"{p_ms:.3f}", bound_ms=f"{bound['bound_ms']:.6f}",
-                bound_by=bound["bound_by"], rows_walked=bound["rows_walked"],
-                takes=bound["takes"])
+            say("victim", N=N, M=M, cap=cap, extremes=extremes, equal=same,
+                kernel_ms=f"{k_ms:.5f}", kernel_only_ms=f"{bare_ms:.5f}", plain_ms=f"{p_ms:.3f}",
+                bound_ms=f"{bound['bound_ms']:.6f}", bound_by=bound["bound_by"],
+                rows_walked=walked, takes=bound["takes"],
+                ns_per_row="-" if ns_row is None else f"{ns_row:.2f}",
+                route=geometry["route"], geometry=json.dumps(geometry))
             check(same, f"victim_select disagrees with its plain version at {N}x{M} cap {cap}")
     return rows, mismatches, max_err
 
@@ -1185,11 +1249,16 @@ def drive_preempt(plugin, group: int):
     contrib_p[:N, :M] = contrib
     deficit_p = np.zeros(Mp, dtype=np.int64)
     deficit_p[:M] = deficit
-    same, err, k_ms, p_ms, bound = compare_victim(contrib_p, deficit_p,
-                                                  spec.max_victims_per_cycle, 50)
+    same, err, k_ms, bare_ms, p_ms, bound, _ = compare_victim(contrib_p, deficit_p,
+                                                              spec.max_victims_per_cycle, 50)
     check(same, "victim_select disagrees with its plain version on the preemption path")
-    return dict(launches=launches, same=same, err=err, ms=k_ms, plain_ms=p_ms, bound=bound,
-                shape=[Np, Mp], candidates=N)
+    say("preempt-kernel", shape=json.dumps([Np, Mp]), equal=same, kernel_ms=f"{k_ms:.5f}",
+        kernel_only_ms=f"{bare_ms:.5f}", plain_ms=f"{p_ms:.3f}",
+        bound_ms=f"{bound['bound_ms']:.8f}",
+        rows_walked=bound["rows_walked"], geometry=json.dumps(victim_geometry(Mp)))
+    return dict(launches=launches, same=same, err=err, ms=k_ms, kernel_only_ms=bare_ms,
+                plain_ms=p_ms, bound=bound, shape=[Np, Mp], candidates=N,
+                geometry=victim_geometry(Mp))
 
 
 # --------------------------------------------------------------- phases
@@ -1457,6 +1526,8 @@ def run() -> int:
         "bound_by": preempt["bound"]["bound_by"],
         "library_ms": None,
         "shape": preempt["shape"],
+        "kernel_only_ms": preempt["kernel_only_ms"],
+        "geometry": preempt["geometry"],
         "rows_walked": preempt["bound"]["rows_walked"],
         "cells": victim_rows,
     }, {

@@ -33,7 +33,8 @@ break. The step per candidate: take iff any dim has ``contrib > 0`` while
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -43,21 +44,84 @@ from .check_dense import KernelLaunchError, _require
 launches = 0
 
 _INT32_MAX = 2**31 - 1
-_THREADS_MAX = 1024  # csrc/victim_select.cu's __launch_bounds__
+# The kernel's limits, which csrc/victim_select.cu's entry checks again:
 _SMEM_MAX = 232448  # dynamic shared memory one block may use on Hopper
+_HEADER_BYTES = 256  # the kernel's Header: stop flag, mbarriers
+_CONSUMERS_MAX = 8  # consumer warps
+_STAGES_MAX = 8  # ring stages
+_REG_COLS_MAX = 32  # int64 columns a consumer lane holds in registers
+#: one consumer warp up to this many deficit dims, else eight: one warp
+#: measured faster at 64 columns, eight at 256 (PERF.md, section 6)
+_ONE_WARP_COLS = 64
+_STAGE_SHARE = 4  # a stage takes about a quarter of the ring's bytes
 #: ``kt_victim_select``'s C parameters: contrib, deficit, selected, ok,
-#: remaining; N, M, cap, threads, smem; the stream
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: remaining; N, M, cap, consumers, reg_cols, stages, head_rows,
+#: chunk_rows, smem; the stream
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def _launch_shape(M: int) -> Tuple[int, int]:
-    """(threads, dynamic shared bytes) of the one block for M deficit
-    dims (M >= 1): a whole number of warps up to 1024, one column per
-    thread per stride, and ``remaining`` in shared memory when its M int64
-    fit there (else 0: it stays in device memory)."""
-    threads = min(_THREADS_MAX, max(32, -(-M // 32) * 32))
-    smem = M * 8 if M * 8 <= _SMEM_MAX else 0
-    return threads, smem
+class LaunchShape(NamedTuple):
+    """The one block's geometry for M deficit dims."""
+
+    route: str  # "ring": rows streamed into shared memory; "wide": read from device memory
+    consumers: int  # consumer warps, which hold remaining and decide each row: 1 or 8
+    reg_cols: int  # int64 columns of remaining a consumer lane holds in registers
+    group_rows: int  # rows decided per group: 4 at up to 8 register columns, else 1
+    stages: int  # ring stages (0 on the wide route)
+    head_rows: int  # rows of the first chunk: two groups, at most a stage's
+    chunk_rows: int  # rows of every later chunk, a stage's: even (so every bulk copy
+    # starts 16-byte aligned) and whole groups
+    stage_bytes: int  # chunk_rows * M * 8 rounded up to 128
+    smem: int  # dynamic shared bytes: the header, then the ring or remaining's extra columns
+    threads: int  # 32 per consumer warp, plus the producer warp on the ring route
+    remaining_in: str  # "registers", "registers+shared" or "registers+device"
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@lru_cache(maxsize=256)
+def _launch_shape(M: int) -> LaunchShape:
+    """The geometry of the one block for M deficit dims (M >= 1), the route
+    chosen by shape; the only place it is decided. ``ring`` when two
+    stages of two rows fit in shared memory (M <= 7256): one consumer warp
+    up to 64 columns, else 8, remaining in registers (KREG, the power of
+    two at or above a lane's share of the columns), a first chunk of two
+    row groups, and up to 8 stages of about a quarter of the budget each,
+    their rows whole groups and even. Else ``wide``: 8 consumer warps read
+    the rows from device memory; remaining's first 8192 columns sit in
+    registers, the rest in shared memory where they fit (M <= 37216), else
+    in device memory."""
+    row = 8 * M
+    ring = _SMEM_MAX - _HEADER_BYTES
+    if 2 * _round128(2 * row) <= ring:
+        c = 1 if M <= _ONE_WARP_COLS else _CONSUMERS_MAX
+        reg_cols = 1 << max(0, -(-M // (32 * c)) - 1).bit_length()
+        group = 4 if reg_cols <= 8 else 1
+        unit = max(2, group)
+        rows = max(unit, ring // _STAGE_SHARE // row // unit * unit)
+        stage = _round128(rows * row)
+        stages = min(_STAGES_MAX, ring // stage)
+        return LaunchShape("ring", c, reg_cols, group, stages, min(rows, 2 * unit), rows, stage,
+                           _HEADER_BYTES + stages * stage, 32 * (c + 1), "registers")
+    c = _CONSUMERS_MAX
+    ext = max(0, M - 32 * c * _REG_COLS_MAX)
+    in_smem = _HEADER_BYTES + 8 * ext <= _SMEM_MAX
+    where = "registers" if ext == 0 else "registers+shared" if in_smem else "registers+device"
+    return LaunchShape("wide", c, _REG_COLS_MAX, 1, 0, 0, 0, 0,
+                       _HEADER_BYTES + (8 * ext if in_smem else 0), 32 * c, where)
+
+
+def launch_args(contrib, deficit, selected, ok, remaining, max_victims: int,
+                shape: LaunchShape):
+    """``kt_victim_select``'s arguments, in ARGTYPES' order, on the current
+    stream of the operands' device."""
+    N, M = contrib.shape
+    return (contrib.data_ptr(), deficit.data_ptr(), selected.data_ptr(), ok.data_ptr(),
+            remaining.data_ptr(), N, M, max_victims, shape.consumers, shape.reg_cols,
+            shape.stages, shape.head_rows, shape.chunk_rows, shape.smem,
+            torch.cuda.current_stream(contrib.device).cuda_stream)
 
 
 def victim_select_reference(contrib: torch.Tensor, deficit: torch.Tensor,
@@ -113,17 +177,16 @@ def victim_select(contrib: torch.Tensor, deficit: torch.Tensor, max_victims: int
         return (torch.zeros(N, dtype=torch.bool, device=device),
                 torch.ones((), dtype=torch.bool, device=device),
                 torch.empty(0, dtype=torch.int64, device=device))
-    threads, smem = _launch_shape(M)
+    shape = _launch_shape(M)
+    if shape.route == "ring" and contrib.data_ptr() % 16:
+        contrib = contrib.clone()  # a view off the allocation's alignment: bulk copies need 16 B
     lib = load_library()
     selected = torch.empty(N, dtype=torch.bool, device=device)
     ok = torch.empty((), dtype=torch.bool, device=device)
     remaining = torch.empty(M, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
-        err = lib.kt_victim_select(
-            contrib.data_ptr(), deficit.data_ptr(), selected.data_ptr(), ok.data_ptr(),
-            remaining.data_ptr(), N, M, max_victims, threads, smem,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        err = lib.kt_victim_select(*launch_args(contrib, deficit, selected, ok, remaining,
+                                                max_victims, shape))
     if err != 0:
         raise KernelLaunchError(f"victim_select kernel launch failed: cudaError {err}")
     launches += 1

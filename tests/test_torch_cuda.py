@@ -16,8 +16,9 @@ not installed:
 - the tick's torch functions (override resolution, the aggregations and
   scatters, both step forms) on CUDA tensors ≡ on CPU tensors at a mid
   shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``;
-- the victim_select kernel ≡ its plain version (shared-memory and
-  device-memory routes, caps), a refused launch raises, and
+- the victim_select kernel ≡ its plain version (the ring and wide
+  routes, odd M, chunk edges, stops mid-chunk, negative contributions, the
+  int64 extremes, N = 0, caps), a refused launch raises, and
   ``gang_check_groups`` on ``device="cuda"`` ≡ ``"cpu"``;
 - the check_gather kernel ≡ its plain version (K in {4, 32, 64, 2048} ×
   R in {3, 8, 16, 20}, all four variants, both forms, int64 extremes, pads,
@@ -332,39 +333,162 @@ def test_tick_on_card_matches_cpu(card, dense):
     want.stop()
 
 
-@pytest.mark.cuda
-def test_victim_kernel_matches_plain(card):
-    """victim_select's kernel ≡ its plain version on the card, bit for bit,
-    each launch counted once: one row, a deficit already met, more dims
-    than threads (M = 2500), and remaining held in device memory
-    (M = 30000, past the shared-memory route), each with caps 0, 1, N / 2."""
+def _victim_seeded(rng, N, M):
+    contrib = rng.integers(0, 2**40, (N, M), dtype=np.int64)
+    contrib[rng.random((N, M)) < 0.9] = 0
+    deficit = (contrib.sum(0) * rng.uniform(0.2, 0.8, M)).astype(np.int64)
+    return contrib, deficit
+
+
+def _ring_place(shape, row):
+    """(offset of ``row`` in its ring chunk, that chunk's rows, offset in
+    its row group): the first chunk holds ``head_rows`` rows, every later
+    one ``chunk_rows``."""
+    H, W = shape.head_rows, shape.chunk_rows
+    off, rows = (row, H) if row < H else ((row - H) % W, W)
+    return off, rows, row % shape.group_rows
+
+
+def _mid_row(shape, chunk):
+    """The first row past the middle of ring chunk ``chunk`` (>= 1) that is
+    neither the first nor the last of its chunk or of its row group."""
+    W = shape.chunk_rows
+    for off in range(W // 2, W - 1):
+        row = shape.head_rows + (chunk - 1) * W + off
+        if 0 < row % shape.group_rows < shape.group_rows - 1:
+            return row
+    raise AssertionError(f"no row inside chunk {chunk} and a group of {shape}")
+
+
+def _victim_problems(case):
+    """[(contrib, deficit, caps)] of one card case, seeded with numpy."""
     from kube_throttler_tpu_torch.ops import victim_select as vsel
 
     rng = np.random.default_rng(6)
-    for N, M in ((1, 1), (37, 5), (3, 7), (500, 64), (300, 2500), (40, 30000)):
-        contrib = rng.integers(0, 2**40, (N, M), dtype=np.int64)
-        contrib[rng.random((N, M)) < 0.9] = 0
-        deficit = (contrib.sum(0) * rng.uniform(0.2, 0.8, M)).astype(np.int64)
-        if N == 3:
-            deficit[:] = -1
+    if case == "seeded":  # one row, a met deficit, M = 2500, the wide route
+        out = []
+        for N, M in ((1, 1), (37, 5), (3, 7), (500, 64), (300, 2500), (40, 30000)):
+            contrib, deficit = _victim_seeded(rng, N, M)
+            if N == 3:
+                deficit[:] = -1
+            out.append((contrib, deficit, sorted({0, 1, N // 2})))
+        return out
+    if case == "odd_m":  # rows of 8 * M bytes, the last chunk's odd 8 bytes (N, M odd)
+        return [(*_victim_seeded(rng, N, M), [0, N // 3])
+                for N, M in ((1001, 5), (999, 7), (2001, 33), (301, 2500))]
+    if case == "chunk_edges":  # N ends inside a ring chunk and inside a row group
+        shape = vsel._launch_shape(256)
+        H, W = shape.head_rows, shape.chunk_rows
+        ns = (H // 2 + 1, H + 5, H + 7, H + 3 * W + 3, H + 57 * W + 9)
+        for N in ns:
+            off, rows, in_group = _ring_place(shape, N - 1)
+            assert off < rows - 1 and in_group < shape.group_rows - 1, (N, shape)
+        return [(*_victim_seeded(rng, N, 256), [0, 5]) for N in ns]
+    if case == "stops_mid_chunk":
+        # every row helps dim 0, so the cap stops the walk inside a ring
+        # chunk and inside a row group, with the producer stages ahead;
+        # then a deficit that closes at such a row
+        N, M = 4096, 256
+        shape = vsel._launch_shape(M)
+        stops = [_mid_row(shape, chunk) for chunk in (11, 51, 15)]
+        for row in stops:
+            off, rows, in_group = _ring_place(shape, row)
+            assert 0 < off < rows - 1 and 0 < in_group < shape.group_rows - 1, (row, shape)
+            assert row // shape.chunk_rows > shape.stages  # the ring has wrapped
+        contrib = np.zeros((N, M), dtype=np.int64)
+        contrib[:, 0] = 1
+        contrib[:, 1:] = rng.integers(0, 6, (N, M - 1))  # met dims stay met
+        deficit = np.full(M, -1, dtype=np.int64)
+        deficit[0] = 10**6
+        closing = deficit.copy()
+        closing[0] = stops[2] + 1  # one take a row: the last is row stops[2]
+        return [(contrib, deficit, [stops[0] + 1, stops[1] + 1]), (contrib, closing, [0])]
+    if case == "negative":  # negative contributions reopen met dims
+        out = []
+        for N, M in ((2000, 8), (3000, 256), (500, 2500)):
+            contrib = rng.integers(-(2**40), 2**40, (N, M), dtype=np.int64)
+            contrib[rng.random((N, M)) < 0.7] = 0
+            deficit = rng.integers(0, 2**41, M, dtype=np.int64)
+            out.append((contrib, deficit, [0, N // 4]))
+        return out
+    if case == "extremes":  # the int64 extremes: the subtraction wraps
+        ext = np.array(EXTREMES, dtype=np.int64)
+        out = []
+        for N, M in ((600, 13), (300, 256)):
+            contrib = rng.choice(ext, (N, M))
+            contrib[rng.random((N, M)) < 0.5] = 0
+            out.append((contrib, rng.choice(ext, M), [0, 7]))
+        return out
+    if case == "wide":  # rows past the ring: remaining beside the registers
+        return [(*_victim_seeded(rng, N, M), [0, 3])
+                for N, M in ((64, 7257), (50, 30000), (6, 40000), (2, 10**6))]
+    assert case == "empty"  # N = 0
+    return [(np.zeros((0, M), dtype=np.int64), np.ones(M, dtype=np.int64), [0, 1])
+            for M in (4, 256, 30000)]
+
+
+VICTIM_CASES = ("seeded", "odd_m", "chunk_edges", "stops_mid_chunk", "negative", "extremes",
+                "wide", "empty")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VICTIM_CASES)
+def test_victim_kernel_matches_plain(card, case):
+    """victim_select's kernel ≡ its plain version on the card, bit for bit,
+    each launch counted once: one row, a deficit already met, more dims
+    than threads (M = 2500), and remaining held beside the registers
+    (M = 30000, past the ring); odd M and the last chunk's odd 8 bytes;
+    N off the chunk; a cap and a closing deficit that stop the walk
+    mid-chunk; negative contributions; the int64 extremes; N = 0."""
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    for contrib, deficit, caps in _victim_problems(case):
+        N, M = contrib.shape
         c, d = torch.from_numpy(contrib).to(card), torch.from_numpy(deficit).to(card)
-        for cap in sorted({0, 1, N // 2}):
+        for cap in caps:
             before = vsel.launches
             got = vsel.victim_select(c, d, cap)
             torch.cuda.synchronize()
             assert vsel.launches == before + 1
             want = vsel.victim_select_reference(c, d, cap)
             for g, w in zip(got, want):
-                assert g.dtype == w.dtype and torch.equal(g, w), (N, M, cap)
+                assert g.dtype == w.dtype and torch.equal(g, w), (case, N, M, cap)
 
 
 @pytest.mark.cuda
-def test_victim_kernel_launch_failure_raises(card, monkeypatch):
-    """A launch the card refuses (2048 threads, through the geometry hook)
-    raises KernelLaunchError and counts no launch."""
+def test_victim_kernel_takes_an_unaligned_view(card):
+    """A contiguous view 8 bytes off a 16-byte boundary (odd M, from row 1)
+    still gives the plain version's answer: the wrapper realigns it for the
+    bulk copies."""
     from kube_throttler_tpu_torch.ops import victim_select as vsel
 
-    monkeypatch.setattr(vsel, "_launch_shape", lambda M: (2048, M * 8))
+    contrib, deficit = _victim_seeded(np.random.default_rng(7), 501, 7)
+    c = torch.from_numpy(contrib).to(card)[1:]
+    assert c.data_ptr() % 16 == 8 and c.is_contiguous()
+    d = torch.from_numpy(deficit).to(card)
+    got = vsel.victim_select(c, d, 0)
+    want = vsel.victim_select_reference(c, d, 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refused", [
+    {"consumers": 64},                  # 2048 threads: past the kernel's 8 consumer warps
+    {"smem": 300_000},                  # past the 227 KB a block may use
+    {"chunk_rows": 3},                  # an odd chunk: a copy off the 16-byte grid
+    {"stages": 1},                      # a ring of one stage
+    {"reg_cols": 4},                    # one warp of 4 register columns: not instantiated
+    {"head_rows": 6},                   # a first chunk of one and a half row groups
+])
+def test_victim_kernel_launch_failure_raises(card, monkeypatch, refused):
+    """A launch the card or the kernel's entry refuses (a geometry set
+    through the hook) raises KernelLaunchError and counts no launch."""
+    from kube_throttler_tpu_torch.ops import victim_select as vsel
+
+    real = vsel._launch_shape
+    monkeypatch.setattr(vsel, "_launch_shape",
+                        lambda M: real(M)._replace(**refused))
     c = torch.ones((4, 4), dtype=torch.int64, device=card)
     before = vsel.launches
     with pytest.raises(cd.KernelLaunchError, match="cudaError"):

@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "kube_throttler_tpu")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "victim_timing.py"]
     assert len(files) > 40 and files[-1].exists()
     return files
 

@@ -40,6 +40,9 @@ from kube_throttler_tpu_torch.ops import victim_select as vs
 from kube_throttler_tpu_torch.ops.check_dense import KernelLaunchError
 from kube_throttler_tpu_torch.policy.victims import sequential_victim_select
 
+# by its own name (pytest puts tests/ on the path)
+from torch_gather_cases import EXTREMES
+
 PKGS = {
     "ref": (jpod, jtypes, jstore, jplugin, {}),
     "port": (tpod, ttypes, tstore, tplugin, {"device": "cpu"}),
@@ -119,6 +122,51 @@ def test_int64_extremes_stay_exact():
     for cap in (0, 1, 2):
         got, want = _port(contrib, deficit, cap), _jax(contrib, deficit, cap)
         assert got[:2] == want[:2] and got[2].tolist() == want[2].tolist()
+
+
+def test_negative_contribution_reopens_a_met_dim():
+    """A taken row with a negative contribution raises a met dim above 0
+    again, and a later row is taken for it: the walk does not assume that
+    remaining only falls."""
+    contrib = np.array([[6, 0], [-7, 4], [0, 9], [6, 0], [5, 5]], dtype=np.int64)
+    deficit = np.array([5, 3], dtype=np.int64)
+    for cap in (0, 1, 2, 3):
+        got, want = _port(contrib, deficit, cap), _jax(contrib, deficit, cap)
+        assert got[:2] == want[:2] and got[2].tolist() == want[2].tolist()
+        assert got[:2] == sequential_victim_select(deficit, contrib, cap)[:2]
+    # row 1 reopens dim 0 (-1 - -7 = 6); row 3 closes it again; row 4 finds nothing open
+    assert _port(contrib, deficit, 0)[:2] == (True, [0, 1, 3])
+
+
+def test_subtraction_wraps_past_int64_range():
+    """``remaining - row`` wraps as two's complement past +2^63 and past
+    -2^63, as JAX subtracts int64; a wrap can reopen a met dim."""
+    lo, hi = -(2**63), 2**63 - 1
+    contrib = np.array([[lo + 1, 1], [hi, 1], [0, 1]], dtype=np.int64)
+    deficit = np.array([2**62, 3], dtype=np.int64)
+    # row 0: 2^62 - (-2^63 + 1) wraps to -2^62 - 1; row 1: -2^62 - 1 - (2^63 - 1)
+    # wraps to 2^62, reopening dim 0
+    for cap in (0, 1, 2):
+        got, want = _port(contrib, deficit, cap), _jax(contrib, deficit, cap)
+        assert got[:2] == want[:2] and got[2].tolist() == want[2].tolist()
+    assert _port(contrib, deficit, 0)[2].tolist() == [2**62, 0]
+    assert _port(contrib, deficit, 1)[2].tolist() == [-(2**62) - 1, 2]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_extremes_with_negative_contributions_match_jax(seed):
+    """Seeded problems drawn from the int64 extremes, signs mixed, so the
+    subtraction wraps and negative rows reopen dims."""
+    rng = np.random.default_rng(seed)
+    n, m = 48, 1 + seed
+    ext = np.array(EXTREMES, dtype=np.int64)
+    contrib = rng.choice(ext, (n, m))
+    contrib[rng.random((n, m)) < 0.3] = 0
+    deficit = rng.choice(ext, m)
+    for cap in (0, 1, n // 3):
+        got, want = _port(contrib, deficit, cap), _jax(contrib, deficit, cap)
+        assert got[:2] == want[:2] and got[2].tolist() == want[2].tolist()
+        assert got[:2] == sequential_victim_select(deficit, contrib, cap)[:2]
 
 
 # ------------------------------------------------------ hypothesis twin
@@ -312,27 +360,84 @@ def test_other_cycle_failures_still_return_false(monkeypatch):
 # ------------------------------------------ the kernel's plumbing (no card)
 
 
-@pytest.mark.parametrize("M", [1, 31, 32, 33, 1024, 1025, 2500, 29056, 29057, 10**6])
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 1024, 1025, 2500, 7256, 7257, 29056, 29057,
+                               30000, 37216, 37217, 10**6])
 def test_launch_shape_within_cuda_limits(M):
-    threads, smem = vs._launch_shape(M)
-    assert 32 <= threads <= 1024 and threads % 32 == 0
-    assert threads >= min(M, 1024)
-    assert smem in (0, M * 8) and smem <= 232448
-    assert (smem == M * 8) is (M * 8 <= 232448)
+    """The route by shape: the ring while two stages of two rows fit in
+    shared memory, else the wide route; every byte of shared memory within
+    Hopper's 232,448, chunk rows even (each bulk copy starts 16-byte
+    aligned) and whole row groups, remaining in registers or beside them."""
+    shape = vs._launch_shape(M)
+    assert shape.route == ("ring" if M <= 7256 else "wide")
+    assert shape.consumers in (1, 8) and shape.threads <= 1024
+    assert shape.reg_cols in (1, 2, 4, 8, 16, 32)
+    reg = 32 * shape.consumers * shape.reg_cols
+    ext = max(0, M - reg)
+    if shape.route == "ring":
+        assert shape.threads == 32 * (shape.consumers + 1)  # the producer warp
+        assert shape.group_rows == (4 if shape.reg_cols <= 8 else 1)
+        for rows in (shape.head_rows, shape.chunk_rows):
+            assert rows >= 2 and rows % 2 == 0 and rows % shape.group_rows == 0
+        # the first chunk: two groups (the first decided after one small copy)
+        assert shape.head_rows == min(shape.chunk_rows, 2 * max(2, shape.group_rows))
+        assert 2 <= shape.stages <= 8
+        assert shape.stage_bytes % 128 == 0 and shape.stage_bytes >= shape.chunk_rows * M * 8
+        assert ext == 0 and shape.remaining_in == "registers"
+        assert shape.smem == 256 + shape.stages * shape.stage_bytes
+    else:
+        assert shape.threads == 32 * shape.consumers == 256 and shape.reg_cols == 32
+        assert shape.stages == shape.head_rows == shape.chunk_rows == 0
+        assert shape.remaining_in == ("registers" if ext == 0 else "registers+shared"
+                                      if 256 + 8 * ext <= 232448 else "registers+device")
+        assert shape.smem == 256 + (8 * ext if shape.remaining_in == "registers+shared" else 0)
+    assert shape.smem <= 232448
 
 
-def test_c_signature_matches_the_wrapper():
+@pytest.mark.parametrize("M", [1, 32, 33, 64, 65, 256, 257, 2500, 4096, 4097, 7256])
+def test_launch_shape_consumers(M):
+    """One consumer warp up to 64 columns, else eight, and the fewest
+    register columns (a power of two) that hold a lane's share: the pairs
+    the kernel is instantiated for."""
+    shape = vs._launch_shape(M)
+    assert shape.consumers == (1 if M <= 64 else 8)
+    lanes = 32 * shape.consumers
+    assert lanes * shape.reg_cols >= M and (shape.reg_cols == 1 or lanes * shape.reg_cols // 2 < M)
+    assert (shape.consumers, shape.reg_cols) in {(1, 1), (1, 2)} | {(8, k) for k in
+                                                                     (1, 2, 4, 8, 16, 32)}
+
+
+def test_c_signature_matches_the_wrapper(monkeypatch):
     """``kt_victim_select``'s parameters in ``csrc/victim_select.cu``: five
-    pointers, five ints, the stream — the ``argtypes`` the wrapper sets."""
+    pointers, nine ints, the stream — the ``argtypes`` the wrapper sets,
+    in the order ``launch_args`` gives them."""
     src = (Path(vs.__file__).resolve().parent.parent / "csrc" / "victim_select.cu").read_text()
     sig = re.search(r'extern "C" int kt_victim_select\((.*?)\)\s*\{', src, re.S).group(1)
     params = [p.strip() for p in sig.split(",")]
     kinds = ["ptr" if "*" in p else "int" for p in params]
-    assert kinds == ["ptr"] * 5 + ["int"] * 5 + ["ptr"]
+    assert kinds == ["ptr"] * 5 + ["int"] * 9 + ["ptr"]
     names = [re.split(r"[\s*]+", p)[-1] for p in params]
     assert names == ["contrib", "deficit", "selected", "ok", "remaining", "N", "M", "cap",
-                     "threads", "smem", "stream"]
+                     "consumers", "reg_cols", "stages", "head_rows", "chunk_rows", "smem",
+                     "stream"]
     assert [a is ctypes.c_void_p for a in vs.ARGTYPES] == [k == "ptr" for k in kinds]
+
+    class Stream:
+        cuda_stream = 777
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    N, M = 3, 5
+    ops = [torch.zeros((N, M), dtype=torch.int64), torch.zeros(M, dtype=torch.int64),
+           torch.zeros(N, dtype=torch.bool), torch.zeros((), dtype=torch.bool),
+           torch.zeros(M, dtype=torch.int64)]
+    shape = vs._launch_shape(M)._replace(consumers=2, reg_cols=3, stages=4, head_rows=5,
+                                         chunk_rows=6, smem=999)
+    args = vs.launch_args(*ops, 7, shape)
+    assert dict(zip(names, args)) == {
+        "contrib": ops[0].data_ptr(), "deficit": ops[1].data_ptr(),
+        "selected": ops[2].data_ptr(), "ok": ops[3].data_ptr(),
+        "remaining": ops[4].data_ptr(), "N": N, "M": M, "cap": 7, "consumers": 2,
+        "reg_cols": 3, "stages": 4, "head_rows": 5, "chunk_rows": 6, "smem": 999,
+        "stream": 777}
 
 
 def test_wrapper_refuses_other_devices():
