@@ -12,9 +12,12 @@ the ignored ``build/kernels/``; beside them, each source once more with
 spills, and their SASS instruction counts),
 holds each kernel against its plain PyTorch version on the card
 (``check_dense``: every onEqual/step-3 variant, both R routes, a throttle
-count past 65,535 blocks of 32; ``check_gather``: every variant and both
-output forms at K in {4, 32, 64, 2048} × R in {3, 8, 16, 20} and at
-131072 × 32 × 8, with int64 extremes, pads and cols >= T), drives the
+count past 65,535 blocks of 32; ``check_gather``: its pack's records byte
+for byte against the plain pack, and its check, every variant and both
+output forms, against the plain version over the state's planes and the
+one over the plain records, at K in {4, 32, 64, 2048} × R in {3, 8, 16, 20},
+at R = 33 and 40 and at 131072 × 32 × 8, with int64 extremes, pads and
+cols >= T), drives the
 main path — ``KubeThrottler.pre_filter_batch`` over 100,000 bound pods,
 10,000 Throttles and 8 ClusterThrottles, the Throttle kind through
 ``check_gather`` and the ClusterThrottle kind through ``check_dense`` —
@@ -106,8 +109,9 @@ PREEMPT_GROUP = 1
 GATHER_TICK_CELL = (131072, 32, 16384, 8)
 # the coalescer phase: stored pods per check_pods_multi call
 COALESCE_PODS = 256
-# kernel instantiations ptxas must report per source
-PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 8, "victim_select": 9}
+# kernel instantiations ptxas must report per source (check_gather: 8
+# checks and the pack)
+PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 9, "victim_select": 9}
 EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
             2**63 - 1, -(2**63), 123456789012345, -987654321098765]
 
@@ -255,19 +259,29 @@ def compare(pre, pods, mask, on_equal: bool, step3: bool, got=None):
 
 def compare_gather(state, pods, cols, on_equal: bool, step3: bool):
     """(mismatching outputs, max |kernel - plain|, per-status counts) of the
-    check_gather kernel, both forms, against its plain version on the same
-    device tensors."""
+    check_gather kernels on the same device tensors: the pack kernel's
+    records against the plain pack's (int64 words that differ), and both
+    forms of the wrapper (pack and check) against the plain version over
+    the state's planes, whose statuses the plain version over the plain
+    records must also give."""
     import torch
 
     from kube_throttler_tpu_torch.ops import check_gather as cg
 
+    R = state.thr_req.shape[1]
+    want_pack = cg.pack_gather_rows_reference(state)
+    got_pack = cg.pack_gather_rows(state)
     got_s = cg.check_gather(state, pods, cols, on_equal, step3, statuses=True)
     got_c, got_b = cg.check_gather(state, pods, cols, on_equal, step3)
     want_s = cg.check_gather_reference(state, pods, cols, on_equal, step3, statuses=True)
     want_c, want_b = cg.check_gather_reference(state, pods, cols, on_equal, step3)
+    plain_packed = cg.check_packed_reference(want_pack, pods, cols, R, on_equal, step3,
+                                             statuses=True)
     bad = (int((got_s != want_s).sum()) + int((got_c != want_c).sum())
-           + int((got_b != want_b).sum()))
-    bad += sum(g.dtype != w.dtype for g, w in ((got_s, want_s), (got_c, want_c), (got_b, want_b)))
+           + int((got_b != want_b).sum()) + int((got_pack != want_pack).sum())
+           + int((plain_packed != want_s).sum()))
+    bad += sum(g.dtype != w.dtype for g, w in ((got_s, want_s), (got_c, want_c), (got_b, want_b),
+                                               (got_pack, want_pack)))
     err = 0
     for g, w in ((got_s, want_s), (got_c, want_c)):
         if g.numel():
@@ -313,6 +327,41 @@ def gather_bound(state, pods, cols):
             "rows": rows, "row_dims": n_pairs}
 
 
+def gather_live(state, pods, cols):
+    """{live_slots, live_dims}: the slots the check classifies (col >= 0,
+    row valid, pod valid) and their (slot, dim) pairs the pod requests
+    nonzero; each live slot reads a record's header sector, and each such
+    pair whose threshold is present a dim slot's sector."""
+    c = cols.long().clamp(0, state.valid.shape[0] - 1)
+    live = (cols >= 0) & pods.valid[:, None] & state.valid[c]
+    nz = (pods.req_present & (pods.req != 0)).sum(1, keepdim=True)
+    return {"live_slots": int(live.sum()), "live_dims": int((live.long() * nz).sum())}
+
+
+def gather_bare(state, pods, cols, statuses: bool):
+    """(pack, check, packed): closures making the bare ``kt_pack_gather_rows``
+    and ``kt_check_gather`` calls of one form with their arguments built
+    once, and the buffer the pack writes (packed once here, so the check
+    alone can be timed). Launches of them are not counted."""
+    import torch
+
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    lib = cg.load_library()
+    P, K = cols.shape
+    T, R = state.thr_req.shape
+    shape = cg._launch_shape(P, T)
+    dev = cols.device
+    packed = torch.empty((T, cg.record_layout(R).words), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    pack_args = cg.pack_args(state, packed, shape, stream)
+    check(lib.kt_pack_gather_rows(*pack_args) == 0, "bare kt_pack_gather_rows launch failed")
+    args = cg.launch_args(packed, pods, cols, *cg._outputs(P, K, dev, statuses), False, True,
+                          shape, stream)
+    check(lib.kt_check_gather(*args) == 0, "bare kt_check_gather launch failed")
+    return (lambda: lib.kt_pack_gather_rows(*pack_args)), (lambda: lib.kt_check_gather(*args)), packed
+
+
 def cuda_ms(fn, iters: int, flush_bytes: int = 0) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, by CUDA events.
     With ``flush_bytes`` each timed call starts after a write of that many
@@ -334,6 +383,29 @@ def cuda_ms(fn, iters: int, flush_bytes: int = 0) -> float:
         return a.elapsed_time(b) / iters
     for _ in range(iters):
         flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def device_only_ms(fn, iters: int, flush_bytes: int = 64 << 20) -> float:
+    """Mean device time of ``fn`` alone, by CUDA events: like ``cuda_ms``
+    with the L2 flushed, but the card spins (``torch.cuda._sleep``) before
+    the start event, so the host's time to enqueue ``fn`` never shows as
+    idle time between the events."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(200_000)  # ~0.1 ms at 1.98 GHz: longer than any enqueue here
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -449,7 +521,8 @@ def finish_ptxas_report(proc, out, expected: int):
 
 def instantiation(mangled: str):
     """``reg<on_equal=0,step3_on_equal=1,RB=8>`` (check_dense),
-    ``gather<on_equal=0,step3_on_equal=1,statuses=0>`` (check_gather) or
+    ``gather<on_equal=0,step3_on_equal=1,statuses=0>`` or
+    ``pack_gather_rows`` (check_gather) or
     ``victim<KREG=8,C=1,ring=1>`` (victim_select) for a kernel's mangled name,
     None for any other symbol."""
     k = re.search(r"check_dense_(reg|smem)ILb([01])ELb([01])E(?:Li(\d+)E)?", mangled)
@@ -460,6 +533,8 @@ def instantiation(mangled: str):
     if k is not None:
         oe, s3, st = k.groups()
         return f"gather<on_equal={oe},step3_on_equal={s3},statuses={st}>"
+    if "pack_gather_rows_kernel" in mangled:
+        return "pack_gather_rows"
     k = re.search(r"victim_select_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if k is not None:
         return "victim<KREG={},C={},ring={}>".format(*k.groups())
@@ -615,18 +690,19 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         return phase_total(plugin, phase)
 
     per_call, routes, out = [], [], None
-    cd.launches = cg.launches = 0
+    cd.launches = cg.launches = cg.pack_launches = 0
     for _ in range(calls):
         d0, m0, l0 = split("batch_dispatch"), split("batch_merge"), cd.launches
-        x0, g0 = split("batch_dedupe"), cg.launches
+        x0, g0, k0 = split("batch_dedupe"), cg.launches, cg.pack_launches
         t0 = time.perf_counter()
         out = plugin.pre_filter_batch()
         dt = time.perf_counter() - t0
         d1, m1, x1 = split("batch_dispatch"), split("batch_merge"), split("batch_dedupe")
         per_call.append((dt, d1[0] - d0[0], m1[0] - m0[0], d1[1] - d0[1],
-                         cd.launches - l0, x1[0] - x0[0], cg.launches - g0))
+                         cd.launches - l0, x1[0] - x0[0], cg.launches - g0,
+                         cg.pack_launches - k0))
         routes.append(dict(dm.last_batch_routes))
-    launches, gather_launches = cd.launches, cg.launches
+    launches, gather_launches, pack_launches = cd.launches, cg.launches, cg.pack_launches
 
     pods = plugin.listers.pods.list()
     rng = random.Random(seed + 1)
@@ -652,7 +728,7 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
     }
     return dict(
         shapes=shapes, per_call=per_call, routes=routes, launches=launches,
-        gather_launches=gather_launches,
+        gather_launches=gather_launches, pack_launches=pack_launches,
         breaker=dm.breaker_state(), n_verdicts=len(out["schedulable"]),
         errors=len(out["errors"]), oracle_n=len(probe), oracle_mismatches=mismatches,
         tally=tally, cluster_tally=cl_tally, verdicts=out["schedulable"],
@@ -686,20 +762,21 @@ def tick_once(plugin, label: str, verdicts):
     from kube_throttler_tpu_torch.ops import check_gather as cg
 
     before = {ph: phase_total(plugin, ph)[0] for ph in TICK_PHASES}
-    l0, g0 = cd.launches, cg.launches
+    l0, g0, k0 = cd.launches, cg.launches, cg.pack_launches
     torch.cuda.reset_peak_memory_stats()
     out = plugin.full_tick_sharded(1)
-    launched, gathered = cd.launches - l0, cg.launches - g0
+    launched, gathered, packed = cd.launches - l0, cg.launches - g0, cg.pack_launches - k0
     peak = torch.cuda.max_memory_allocated()
     split = {f"{ph}_ms": f"{(phase_total(plugin, ph)[0] - before[ph]) * 1e3:.3f}"
              for ph in TICK_PHASES}
     routes = plugin.device_manager.last_tick
     say("tick", call=label, **split, check_dense_launches=launched,
-        check_gather_launches=gathered, mesh=json.dumps(out["mesh"]),
+        check_gather_launches=gathered, pack_launches=packed, mesh=json.dumps(out["mesh"]),
         max_memory_allocated=peak, routes=json.dumps(routes, sort_keys=True))
     check(out["mesh"] == [1, 1], f"tick {label} ran on mesh {out['mesh']}")
     check(launched >= 1, f"check_dense was not launched in tick {label}")
     check(gathered >= 1, f"check_gather was not launched in sparse tick {label}")
+    check(packed == gathered, f"{packed} packs for {gathered} check_gather launches in {label}")
     check(routes["throttle"]["route"] == "sparse" and routes["clusterthrottle"]["route"] == "dense",
           f"unexpected tick routes {routes}")
     check(out["errors"] == [] and len(out["schedulable"]) == N_PODS, "tick verdicts missing")
@@ -753,10 +830,10 @@ def drive_tick(plugin, verdicts, calls: int):
     from kube_throttler_tpu_torch.parallel import make_mesh
 
     dm = plugin.device_manager
-    cd.launches = cg.launches = 0
+    cd.launches = cg.launches = cg.pack_launches = 0
     for i in range(calls):
         tick_once(plugin, str(i), verdicts)
-    launches, gather_launches = cd.launches, cg.launches
+    launches, gather_launches, pack_launches = cd.launches, cg.launches, cg.pack_launches
 
     t0 = time.perf_counter()
     edited = edit_overrides(plugin)
@@ -794,23 +871,20 @@ def drive_tick(plugin, verdicts, calls: int):
     check(all(r["route"] == "dense" for r in dense_routes.values()), "dense tick took the sparse route")
     check(dense_launches == 2, f"the dense tick launched check_dense {dense_launches} times")
     check(same, "the dense tick disagrees with the sparse tick")
-    return dict(launches=launches, gather_launches=gather_launches,
+    return dict(launches=launches, gather_launches=gather_launches, pack_launches=pack_launches,
                 dense_launches=dense_launches, dense_s=t_dense, dense_peak=dense_peak,
                 gather=time_tick_parts(dm))
 
 
-def time_tick_parts(dm):
-    """CUDA-event times of the Throttle kind's sparse tick parts at the
-    main path's own state (L2 flushed before each timed call), with
-    check_gather held against its plain version on that state first.
-    Returns check_gather's numbers for the kernels line."""
+def tick_inputs(dm):
+    """The Throttle kind's sparse tick operands, derived from the mirror as
+    ``full_tick_sharded`` derives them: (sched, now_ns, pods, cols,
+    counted, T, res, thr_valid, thr, used_cnt, used_req, contrib, state),
+    ``state`` being the ThrottleState that the tick's check_gather reads."""
     from datetime import datetime, timezone
 
     import torch
 
-    from kube_throttler_tpu_torch.ops import check_gather as cg
-    from kube_throttler_tpu_torch.ops.aggregate import throttled_flags
-    from kube_throttler_tpu_torch.ops.check import check_pods_gather
     from kube_throttler_tpu_torch.ops.overrides import _datetime_to_ns, calculate_thresholds
     from kube_throttler_tpu_torch.parallel import sharded
 
@@ -826,6 +900,27 @@ def time_tick_parts(dm):
     used_cnt, used_req, contrib = sharded.used_from_cols(pods, cols, counted, T)
     state, _, _ = sharded._derived_state(sched, now_ns, used_cnt, used_req, contrib,
                                          *res, thr_valid)
+    return (sched, now_ns, pods, cols, counted, T, res, thr_valid, thr, used_cnt, used_req,
+            contrib, state)
+
+
+def time_tick_parts(dm):
+    """CUDA-event times of the Throttle kind's sparse tick parts at the
+    main path's own state (L2 flushed before each timed call), with
+    check_gather held against its plain version on that state first; the
+    wrapper's time of both forms (pack and check, as the main path calls
+    them) and, beside it, each kernel's device time alone (``device_only_ms`` of
+    the bare calls, the check over records packed once), the live slots and
+    (slot, dim) pairs, and the records' bytes. Returns check_gather's
+    numbers for the kernels line."""
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+    from kube_throttler_tpu_torch.ops.aggregate import throttled_flags
+    from kube_throttler_tpu_torch.ops.check import check_pods_gather
+    from kube_throttler_tpu_torch.ops.overrides import calculate_thresholds
+    from kube_throttler_tpu_torch.parallel import sharded
+
+    (sched, now_ns, pods, cols, counted, T, res, thr_valid, thr, used_cnt, used_req, contrib,
+     state) = tick_inputs(dm)
     bad, err, status_counts = compare_gather(state, pods, cols, False, True)
     check(bad == 0, "check_gather disagrees with its plain version at the tick's state")
     flush = 64 << 20
@@ -844,17 +939,38 @@ def time_tick_parts(dm):
         "full_update_step_gather_ms": cuda_ms(lambda: sharded.full_update_step_gather(
             sched, pods, cols, counted, *res, thr_valid, now_ns), 20, flush),
     }
+    pack, check_counts, packed = gather_bare(state, pods, cols, statuses=False)
+    _, check_statuses, _ = gather_bare(state, pods, cols, statuses=True)
+    # the wrapper's calls again, the host's enqueue hidden: pack and check on the card
+    parts["check_pods_gather_device_ms"] = device_only_ms(lambda: check_pods_gather(
+        state, pods, cols, on_equal=False, step3_on_equal=True), 50, flush)
+    parts["check_gather_statuses_device_ms"] = device_only_ms(lambda: cg.check_gather(
+        state, pods, cols, False, True, statuses=True), 50, flush)
+    parts["pack_ms"] = device_only_ms(pack, 50, flush)
+    parts["kernel_only_ms"] = device_only_ms(check_counts, 50, flush)
+    parts["statuses_kernel_only_ms"] = device_only_ms(check_statuses, 50, flush)
     P, K = cols.shape
     R = pods.req.shape[1]
     bound = gather_bound(state, pods, cols)
+    live = gather_live(state, pods, cols)
+    packed_bytes = packed.numel() * 8
+    # the pack reads each plane once: 3 int64 and 5 bool planes of [T] and of [T,R]
+    pack_read_bytes = T * (1 + R) * (3 * 8 + 5)
     parts["check_pods_gather_bound_ms"] = bound["bound_ms"]
     say("time", route="throttle-tick", shape=f"{P}x{K}x{R} (T={T}, "
         f"O={sched.ov_valid.shape[1]}, rows={bound['rows']}, row_dims={bound['row_dims']})",
         **{k: f"{v:.5f}" for k, v in parts.items()}, bound_by=bound["bound_by"],
         bytes_ms=f"{bound['bytes_ms']:.5f}", ops_ms=f"{bound['ops_ms']:.5f}",
-        bound_bytes=bound["bytes"], kernel_vs_plain_mismatches=bad, status_counts=status_counts, l2="flushed")
+        bound_bytes=bound["bytes"], **live, packed_bytes=packed_bytes,
+        pack_read_bytes=pack_read_bytes, record=json.dumps(cg.record_layout(R)._asdict()),
+        kernel_vs_plain_mismatches=bad, status_counts=status_counts, l2="flushed")
     return dict(ms=parts["check_pods_gather_ms"], statuses_ms=parts["check_gather_statuses_ms"],
                 plain_ms=parts["plain_ms"], step_ms=parts["full_update_step_gather_ms"],
+                device_ms=parts["check_pods_gather_device_ms"],
+                statuses_device_ms=parts["check_gather_statuses_device_ms"],
+                pack_ms=parts["pack_ms"], kernel_only_ms=parts["kernel_only_ms"],
+                statuses_kernel_only_ms=parts["statuses_kernel_only_ms"],
+                packed_bytes=packed_bytes, **live,
                 shape=[P, K, T, R], err=err, mismatches=bad, **bound)
 
 
@@ -876,19 +992,21 @@ def drive_coalesce(plugin, seed: int):
             host = dm.check_pods_multi(pods, kind)
             t_host = time.perf_counter() - t0
             dm._single_check_device = True
-            l0 = cg.launches
+            l0, k0 = cg.launches, cg.pack_launches
             t0 = time.perf_counter()
             device = dm.check_pods_multi(pods, kind)
             t_dev = time.perf_counter() - t0
-            launched = cg.launches - l0
+            launched, packed = cg.launches - l0, cg.pack_launches - k0
             same = device == host
             affected = sum(len(r) for r in host)
             say("coalesce", kind=kind, pods=len(pods), equal_to_host=same,
-                check_gather_launches=launched, host_ms=f"{t_host * 1e3:.3f}",
+                check_gather_launches=launched, pack_launches=packed,
+                host_ms=f"{t_host * 1e3:.3f}",
                 device_ms=f"{t_dev * 1e3:.3f}", affected_slots=affected,
                 blocked=sum(any(v != "not-throttled" for v in r.values()) for r in host))
             check(same, f"check_pods_multi on the device route disagrees with the host ({kind})")
-            check(launched == 1, f"check_gather launched {launched} times for one {kind} call")
+            check(launched == 1 and packed == 1,
+                  f"check_gather launched {launched} times, its pack {packed}, for one {kind} call")
             check(affected > 0, f"no {kind} matched any of the sampled pods")
             out[kind] = launched
     finally:
@@ -1341,7 +1459,8 @@ def run() -> int:
     cases_mod = gather_cases()
     gcases = [("extremes", (500, 16, 40, 3), 9, True)] + [
         ("x".join(map(str, cell)), cell, seed, False)
-        for cell, seed in [cases_mod.gather_cell(K, R, card=True) for K, R in cases_mod.LADDER]
+        for cell, seed in [cases_mod.gather_cell(K, R, card=True)
+                           for K, R in cases_mod.LADDER + cases_mod.WIDE]
         + [(GATHER_TICK_CELL, SEED + 6)]]
     for label, (P, K, T, R), seed, ext in gcases:
         case = gather_inputs(seed, P, K, T, R, "cuda", extremes=ext)
@@ -1349,7 +1468,9 @@ def run() -> int:
             bad, err, counts = compare_gather(*case, on_equal, step3)
             g_err, g_bad = max(g_err, err), g_bad + bad
             say("compare-gather", shape=label, on_equal=on_equal, step3_on_equal=step3,
-                mismatches=bad, status_counts=counts, geometry=json.dumps(cg._launch_shape(P)))
+                mismatches=bad, status_counts=counts,
+                geometry=json.dumps(cg._launch_shape(P, T)._asdict()),
+                record=json.dumps(cg.record_layout(R)._asdict()))
             check(bad == 0, f"check_gather disagrees with its plain version at {label}")
     del case
     torch.cuda.empty_cache()
@@ -1361,17 +1482,19 @@ def run() -> int:
         clusterthrottles=N_CLUSTER, seconds=f"{time.perf_counter() - t0:.1f}")
     try:
         res = drive_main_path(plugin, N_CALLS, ORACLE_SAMPLE, SEED)
-        for i, (dt, disp, merge, nd, nl, dedupe, ng) in enumerate(res["per_call"]):
+        for i, (dt, disp, merge, nd, nl, dedupe, ng, npk) in enumerate(res["per_call"]):
             say("pre_filter_batch", call=i, ms=f"{dt * 1e3:.3f}",
                 batch_dedupe_ms=f"{dedupe * 1e3:.3f}",
                 batch_dispatch_ms=f"{disp * 1e3:.3f}", batch_merge_ms=f"{merge * 1e3:.3f}",
-                check_dense_launches=nl, check_gather_launches=ng,
+                check_dense_launches=nl, check_gather_launches=ng, pack_launches=npk,
                 routes=json.dumps(res["routes"][i], sort_keys=True))
             check(nd == 1, "pre_filter_batch did not take the device batch path")
             check(nl >= 1, f"check_dense was not launched in call {i}")
             check(ng >= 1, f"check_gather was not launched in call {i}")
+            check(npk == ng, f"{npk} packs for {ng} check_gather launches in call {i}")
         say("main-path-checks", shapes=json.dumps(res["shapes"], sort_keys=True),
             check_dense_launches=res["launches"], check_gather_launches=res["gather_launches"],
+            pack_launches=res["pack_launches"],
             breaker=res["breaker"],
             verdicts=res["n_verdicts"], errors=res["errors"],
             oracle_sample=res["oracle_n"], oracle_mismatches=res["oracle_mismatches"],
@@ -1381,6 +1504,8 @@ def run() -> int:
                   f"unexpected batch routes {r}")
         check(res["launches"] >= N_CALLS, "check_dense was not launched on every call")
         check(res["gather_launches"] >= N_CALLS, "check_gather was not launched on every call")
+        check(res["pack_launches"] == res["gather_launches"],
+              "the batch calls' check_gather launches and packs differ")
         check(res["breaker"] == "closed", f"breaker is {res['breaker']}")
         check(res["n_verdicts"] == N_PODS and res["errors"] == 0, "verdicts missing")
         check(res["oracle_n"] >= 2000 and res["oracle_mismatches"] == 0,
@@ -1415,6 +1540,8 @@ def run() -> int:
         tick = drive_tick(plugin, res.pop("verdicts"), N_TICKS)
         check(tick["launches"] >= N_TICKS, "check_dense was not launched on every tick")
         check(tick["gather_launches"] >= N_TICKS, "check_gather was not launched on every tick")
+        check(tick["pack_launches"] == tick["gather_launches"],
+              "the tick's check_gather launches and packs differ")
         g_err, g_bad = max(g_err, tick["gather"]["err"]), g_bad + tick["gather"]["mismatches"]
 
         # -- gang admission, victim selection and preemption, same cluster
@@ -1537,6 +1664,8 @@ def run() -> int:
         "replaces": "kube_throttler_tpu/ops/check.py:228",
         "launches": res["gather_launches"],
         "tick_launches": tick["gather_launches"],
+        "pack_launches": res["pack_launches"],
+        "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,
         "max_abs_err": g_err,
         "mismatches": g_bad,
@@ -1547,6 +1676,14 @@ def run() -> int:
         "library_ms": None,
         "shape": tick["gather"]["shape"],
         "statuses_ms": tick["gather"]["statuses_ms"],
+        "device_ms": tick["gather"]["device_ms"],
+        "statuses_device_ms": tick["gather"]["statuses_device_ms"],
+        "kernel_only_ms": tick["gather"]["kernel_only_ms"],
+        "statuses_kernel_only_ms": tick["gather"]["statuses_kernel_only_ms"],
+        "pack_ms": tick["gather"]["pack_ms"],
+        "packed_bytes": tick["gather"]["packed_bytes"],
+        "live_slots": tick["gather"]["live_slots"],
+        "live_dims": tick["gather"]["live_dims"],
         "bytes_ms": tick["gather"]["bytes_ms"],
         "ops_ms": tick["gather"]["ops_ms"],
         "full_update_step_gather_ms": tick["gather"]["step_ms"],

@@ -121,9 +121,10 @@ def check_pods_gather(state: ThrottleState, pods: PodBatch, cols: torch.Tensor,
 
     Returns ``(counts int32[P,4], schedulable bool[P])``, identical to
     ``check_pods_compact`` given a cols/mask pair describing the same
-    matches (parity-tested). On CUDA tensors it is one launch of the
-    ``check_gather`` kernel (``ops/check_gather.py``); on CPU tensors, its
-    plain version (``check_gather_reference`` there)."""
+    matches (parity-tested). On CUDA tensors it is two launches of
+    ``csrc/check_gather.cu`` (``ops/check_gather.py``): the pack of the
+    state's rows into records, then the check over them; on CPU tensors,
+    the plain version (``check_gather_reference`` there)."""
     return check_gather(state, pods, cols, on_equal, step3_on_equal)
 
 

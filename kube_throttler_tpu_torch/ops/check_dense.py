@@ -29,6 +29,7 @@ int64 whole (Hopper compares s64 natively).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple, Tuple
 
@@ -127,6 +128,12 @@ def load_library() -> ctypes.CDLL:
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless ``t`` is on ``device`` (a CUDA device with its index),
+    of ``dtype`` and ``shape``, contiguous. The quick test runs on every
+    launch, on the host's clock; a message is built only on failure."""
+    if (t.dtype is dtype and t.shape == tuple(shape) and t.is_contiguous()
+            and t.get_device() == device.index):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -135,6 +142,14 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> N
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current for a launch: none when it
+    already is (the switch costs host time on every call)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_dense(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor,
@@ -170,7 +185,7 @@ def check_dense(pre: CheckPrecomp, pods: PodBatch, mask: torch.Tensor,
     lib = load_library()
     out = torch.empty((P, T), dtype=torch.int8, device=device)
     args = launch_args(pre, pods, mask, out, on_equal, step3_on_equal, shape)
-    with torch.cuda.device(device):
+    with _on(device):
         err = lib.kt_check_dense(*args)
     if err != 0:
         raise KernelLaunchError(f"check_dense kernel launch failed: cudaError {err}")

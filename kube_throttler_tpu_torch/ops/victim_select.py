@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from .check_dense import KernelLaunchError, _require
+from .check_dense import KernelLaunchError, _on, _require
 
 #: kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
@@ -184,7 +184,7 @@ def victim_select(contrib: torch.Tensor, deficit: torch.Tensor, max_victims: int
     selected = torch.empty(N, dtype=torch.bool, device=device)
     ok = torch.empty((), dtype=torch.bool, device=device)
     remaining = torch.empty(M, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
+    with _on(device):
         err = lib.kt_victim_select(*launch_args(contrib, deficit, selected, ok, remaining,
                                                 max_victims, shape))
     if err != 0:

@@ -1,19 +1,27 @@
 """The sparse gather check of the port (``ops/check_gather.py``) on the CPU.
 
-- The plain version ≡ the JAX package's ``check_pods_gather`` and
-  ``check_pods_gather_statuses``, bit for bit and dtype for dtype, on
+- Both plain versions ≡ the JAX package's ``check_pods_gather`` and
+  ``check_pods_gather_statuses``, bit for bit and dtype for dtype: the one
+  over the state's planes, and the one over packed records
+  (``check_packed_reference`` of ``pack_gather_rows_reference``), on
   seeded raw arrays (``tests/torch_gather_cases.py``, which the card's
-  tests and ``chip_smoke.py`` share): K in {4, 32, 64, 2048} × R in {3, 8, 16, 20}, all four
+  tests and ``chip_smoke.py`` share): K in {4, 32, 64, 2048} × R in {3, 8, 16, 20}
+  and R in {33, 40}, all four
   (onEqual, step-3 onEqual) variants; -1 pads, invalid throttle rows and
   invalid pods; int64 extremes where ``used + res + pod`` wraps; cols equal
   to T and T + 3 (fault (h): JAX clamps them to row T - 1, where torch
   raised); a P-chunked plain version (``KT_GATHER_CHUNK_ELEMS``).
-- ``_launch_shape`` stays within CUDA's grid limits and covers every pod
-  once for P up to 2^31 - 1.
-- ``launch_args`` passes its operands in the order of ``kt_check_gather``'s
-  C signature in ``csrc/check_gather.cu``.
-- The CPU branch launches nothing; a tensor on any other device than the
-  CPU or CUDA raises.
+- ``pack_gather_rows_reference`` writes the record that
+  ``csrc/check_gather.cu`` documents, checked byte for byte against one
+  built field by field in numpy; ``record_layout`` keeps records in whole
+  sectors for every R.
+- ``_launch_shape`` stays within CUDA's grid limits, covers every pod
+  once for P up to 2^31 - 1, and the pack every throttle row.
+- ``pack_args`` and ``launch_args`` pass their operands in the order of
+  ``kt_pack_gather_rows``' and ``kt_check_gather``'s C signatures in
+  ``csrc/check_gather.cu``.
+- The CPU branch launches neither kernel; a tensor on any other device
+  than the CPU or CUDA raises.
 - The operands that ``pre_filter_batch``, the sparse tick and
   ``check_pods_multi`` hand the wrapper are what the kernel reads
   (dtype, shape, contiguity), so on the card the wrapper launches.
@@ -24,6 +32,7 @@ The kernel itself is held against the plain version on the card
 
 import dataclasses
 import re
+import struct
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -42,7 +51,7 @@ from kube_throttler_tpu_torch.ops.schema import (
     throttle_state_from_arrays,
 )
 
-from torch_gather_cases import gather_arrays as _arrays, gather_cell
+from torch_gather_cases import WIDE, gather_arrays as _arrays, gather_cell
 
 CPU = "cpu"
 VARIANTS = [(False, True), (True, True), (False, False), (True, False)]
@@ -65,10 +74,13 @@ def _assert_same(got, want, what):
 
 
 def _assert_matches_jax(state, pods, cols, variants=VARIANTS):
-    """Both forms of the port's gather check ≡ the JAX functions; returns
-    the last variant's statuses."""
+    """Both forms of the port's gather check, and of the plain version
+    over packed records, ≡ the JAX functions; returns the last variant's
+    statuses."""
     (js, jp), (ts, tp) = _both(state, pods)
     tcols = torch.from_numpy(cols)
+    R = ts.thr_req.shape[1]
+    packed = cg.pack_gather_rows_reference(ts)
     for on_equal, step3 in variants:
         what = (cols.shape, on_equal, step3)
         want = jcheck.check_pods_gather_statuses(js, jp, jnp.asarray(cols),
@@ -82,6 +94,11 @@ def _assert_matches_jax(state, pods, cols, variants=VARIANTS):
                                           step3_on_equal=step3)
         _assert_same(gc, wc, what)
         _assert_same(gs, ws, what)
+        pk = cg.check_packed_reference(packed, tp, tcols, R, on_equal, step3, statuses=True)
+        _assert_same(pk, want, ("packed",) + what)
+        pc, ps = cg.check_packed_reference(packed, tp, tcols, R, on_equal, step3)
+        _assert_same(pc, wc, ("packed",) + what)
+        _assert_same(ps, ws, ("packed",) + what)
     return got
 
 
@@ -94,6 +111,91 @@ def test_plain_matches_jax(K, R):
     got = _assert_matches_jax(state, pods, cols)
     if K >= 32:
         assert set(np.unique(got.numpy()).tolist()) == {-1, 0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("K,R", WIDE)
+def test_plain_matches_jax_past_32_dims(K, R):
+    """R > 32: a record's per-dim masks take two words, and the pods
+    request dims on both sides of 32."""
+    (P, K, T, R), seed = gather_cell(K, R)
+    state, pods, cols = _arrays(np.random.default_rng(seed), P, K, T, R)
+    nz = pods["req_present"] & (pods["req"] != 0)
+    assert nz[:, :32].any() and nz[:, 32:].any()
+    got = _assert_matches_jax(state, pods, cols)
+    assert set(np.unique(got.numpy()).tolist()) == {-1, 0, 1, 2, 3}
+
+
+def _record_bytes(state, t):
+    """Row t's record as ``csrc/check_gather.cu`` documents it, built field
+    by field with ``struct``."""
+    R = state["thr_req"].shape[1]
+    W = max(1, -(-R // 32))
+    header = 32 * -(-(16 + 16 * W) // 32)
+    size = header + 32 * -(-R // 2)
+    rec = bytearray(size)
+    with np.errstate(over="ignore"):
+        au_cnt = state["used_cnt"][t] + state["res_cnt"][t]
+        au_req = state["used_req"][t] + state["res_req"][t]
+    struct.pack_into("<qq", rec, 0, int(state["thr_cnt"][t]), int(au_cnt))
+    lead = (int(state["valid"][t]) | int(state["thr_cnt_present"][t]) << 1
+            | int(state["used_cnt_present"][t] | state["res_cnt_present"][t]) << 2
+            | int(state["st_cnt_throttled"][t]) << 3)
+    struct.pack_into("<I", rec, 16, lead)
+    au_p = state["used_req_present"][t] | state["res_req_present"][t]
+    st = state["st_req_flag_present"][t] & state["st_req_throttled"][t]
+    for r in range(R):
+        w, j = divmod(r, 32)
+        for field, flags in ((1, state["thr_req_present"][t]), (2, au_p), (3, st)):
+            at = 16 + 16 * w + 4 * field
+            word = struct.unpack_from("<I", rec, at)[0] | int(flags[r]) << j
+            struct.pack_into("<I", rec, at, word)
+        struct.pack_into("<qq", rec, header + 16 * r, int(state["thr_req"][t, r]), int(au_req[r]))
+    return bytes(rec)
+
+
+@pytest.mark.parametrize("R,extremes", [(1, False), (3, True), (8, False), (20, True),
+                                        (32, False), (33, True), (40, False), (65, False)])
+def test_pack_writes_the_documented_record(R, extremes):
+    """``pack_gather_rows_reference`` ≡ the record of the ``.cu`` header,
+    byte for byte, row by row; every mask bit past R and every pad byte
+    is 0."""
+    rng = np.random.default_rng(R)
+    state, _, _ = _arrays(rng, 2, 4, 24, R, extremes=extremes)
+    ts = throttle_state_from_arrays(state, device=CPU)
+    packed = cg.pack_gather_rows_reference(ts)
+    layout = cg.record_layout(R)
+    assert packed.dtype == torch.int64 and tuple(packed.shape) == (24, layout.words)
+    raw = packed.numpy().view(np.uint8)
+    for t in range(24):
+        assert raw[t].tobytes() == _record_bytes(state, t), (R, t)
+    assert cg.pack_gather_rows(ts).equal(packed)
+
+
+@pytest.mark.parametrize("R", [0, 1, 8, 31, 32, 33, 64, 65, 96, 97, 200])
+def test_record_layout_is_whole_sectors(R):
+    """Header and record are whole 32-byte sectors; the header holds the
+    count side and every mask group; a dim slot never straddles a sector.
+    At R <= 32 the header is one sector, so a slot requesting one dim reads
+    two."""
+    W, header, words = cg.record_layout(R)
+    assert W == max(1, -(-R // 32))
+    assert header % 4 == 0 and words % 4 == 0
+    assert 8 * header >= 16 + 16 * W and 8 * header < 16 + 16 * W + 32
+    assert header + 2 * R <= words < header + 2 * R + 4
+    if R <= 32:
+        assert header == 4
+    assert cg.record_layout(8) == (1, 4, 20)  # the tick's 160-byte record
+
+
+def test_packed_reference_rejects_another_layout():
+    rng = np.random.default_rng(5)
+    state, pods, cols = _arrays(rng, 6, 4, 9, 3)
+    ts, tp = _both(state, pods)[1]
+    packed = cg.pack_gather_rows_reference(ts)
+    with pytest.raises(ValueError, match="packed"):
+        cg.check_packed_reference(packed, tp, torch.from_numpy(cols), 8)
+    with pytest.raises(ValueError, match="packed"):
+        cg.check_packed_reference(packed.int(), tp, torch.from_numpy(cols), 3)
 
 
 def test_pads_invalid_rows_and_invalid_pods_are_not_affected():
@@ -158,22 +260,29 @@ def test_chunked_plain_matches_jax(K, monkeypatch):
 
 @pytest.mark.parametrize("P", [1, 7, 8, 9, 131072, 100_003, 2**31 - 1])
 def test_launch_shape_within_cuda_limits(P):
-    threads, blocks = cg._launch_shape(P)
-    assert threads % 32 == 0 and threads <= 1024
-    assert 1 <= blocks <= INT32_MAX
-    pods_per_block = threads // 32
-    assert blocks * pods_per_block >= P > (blocks - 1) * pods_per_block
+    for T in (16384, 1, 9, P):
+        threads, blocks, pack_threads, pack_blocks = cg._launch_shape(P, T)
+        assert threads % 32 == 0 and threads <= 1024
+        assert 1 <= blocks <= INT32_MAX
+        pods_per_block = threads // 32 * cg._PODS_PER_WARP
+        assert blocks * pods_per_block >= P > (blocks - 1) * pods_per_block
+        # the pack: one warp a row, striding past 65,535 blocks
+        assert pack_threads % 32 == 0 and pack_threads <= 1024
+        rows_per_block = pack_threads // 32
+        assert 1 <= pack_blocks <= 65535
+        assert (pack_blocks * rows_per_block >= T > (pack_blocks - 1) * rows_per_block
+                or pack_blocks == 65535)
 
 
-def _c_params():
-    """Parameter names of ``kt_check_gather`` in csrc/check_gather.cu."""
+def _c_params(name="kt_check_gather"):
+    """Parameter names of C entry ``name`` in csrc/check_gather.cu."""
     src = (Path(cg.__file__).resolve().parent.parent / "csrc" / "check_gather.cu").read_text()
-    sig = re.search(r'extern "C" int kt_check_gather\((.*?)\)\s*\{', src, re.S).group(1)
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src, re.S).group(1)
     return [re.split(r"[\s*]+", p.strip())[-1] for p in sig.split(",")]
 
 
 @pytest.mark.parametrize("statuses", [False, True])
-def test_launch_args_follow_the_c_signature(statuses, monkeypatch):
+def test_launch_args_follow_the_c_signature(statuses):
     rng = np.random.default_rng(0)
     state, pods, cols = _arrays(rng, 5, 4, 7, 3)
     ts, tp = _both(state, pods)[1]
@@ -182,24 +291,33 @@ def test_launch_args_follow_the_c_signature(statuses, monkeypatch):
     counts = None if statuses else torch.empty((5, 4), dtype=torch.int32)
     sched = None if statuses else torch.empty(5, dtype=torch.bool)
 
-    class _Stream:
-        cuda_stream = 12345
-
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
-    shape = cg._launch_shape(5)
-    args = cg.launch_args(ts, tp, tcols, out, counts, sched, True, False, shape)
+    shape = cg._launch_shape(5, 7)
+    layout = cg.record_layout(3)
+    packed = cg.pack_gather_rows_reference(ts)
+    args = cg.launch_args(packed, tp, tcols, out, counts, sched, True, False, shape, 12345)
     params = _c_params()
-    assert len(args) == len(params) == len(cg.ARGTYPES) == 33
+    assert len(args) == len(params) == len(cg.ARGTYPES) == 20
     tensors = {f.name: getattr(ts, f.name) for f in dataclasses.fields(ThrottleState)}
-    tensors.update(pod_valid=tp.valid, pod_req=tp.req, pod_present=tp.req_present,
+    tensors.update(packed=packed, pod_valid=tp.valid, pod_req=tp.req, pod_present=tp.req_present,
                    cols=tcols, statuses=out, counts=counts, schedulable=sched)
-    for name, arg in zip(params[:23], args[:23]):
+    for name, arg in zip(params[:8], args[:8]):
         t = tensors[name]
         assert arg == (0 if t is None else t.data_ptr()), name
-    assert dict(zip(params[23:], args[23:])) == {
-        "P": 5, "K": 4, "T": 7, "R": 3, "on_equal": 1, "step3_on_equal": 0,
-        "write_statuses": int(statuses), "threads": shape[0], "blocks": shape[1],
+    assert dict(zip(params[8:], args[8:])) == {
+        "P": 5, "K": 4, "T": 7, "R": 3, "header_words": layout.header_words,
+        "words": layout.words, "on_equal": 1, "step3_on_equal": 0,
+        "write_statuses": int(statuses), "threads": shape.threads, "blocks": shape.blocks,
         "stream": 12345,
+    }
+    # the pack: the 16 state planes in field order, then the buffer
+    args = cg.pack_args(ts, packed, shape, 12345)
+    params = _c_params("kt_pack_gather_rows")
+    assert len(args) == len(params) == len(cg.PACK_ARGTYPES) == 24
+    for name, arg in zip(params[:17], args[:17]):
+        assert arg == tensors[name].data_ptr(), name
+    assert dict(zip(params[17:], args[17:])) == {
+        "T": 7, "R": 3, "header_words": layout.header_words, "words": layout.words,
+        "threads": shape.pack_threads, "blocks": shape.pack_blocks, "stream": 12345,
     }
 
 
@@ -207,10 +325,11 @@ def test_cpu_branch_launches_nothing_and_other_devices_raise():
     rng = np.random.default_rng(2)
     state, pods, cols = _arrays(rng, 16, 4, 12, 3)
     ts, tp = _both(state, pods)[1]
-    before = cg.launches
+    before, packs = cg.launches, cg.pack_launches
     counts, schedulable = cg.check_gather(ts, tp, torch.from_numpy(cols))
     statuses = cg.check_gather(ts, tp, torch.from_numpy(cols), statuses=True)
-    assert cg.launches == before
+    assert cg.pack_gather_rows(ts).equal(cg.pack_gather_rows_reference(ts))
+    assert cg.launches == before and cg.pack_launches == packs
     want = cg.check_gather_reference(ts, tp, torch.from_numpy(cols), statuses=True)
     assert torch.equal(statuses, want)
     assert torch.equal(counts, cg.check_gather_reference(ts, tp, torch.from_numpy(cols))[0])
@@ -220,13 +339,15 @@ def test_cpu_branch_launches_nothing_and_other_devices_raise():
     mpods = PodBatch(valid=meta(tp.valid), req=meta(tp.req), req_present=meta(tp.req_present))
     with pytest.raises(ValueError, match="cuda or cpu"):
         cg.check_gather(mstate, mpods, meta(torch.from_numpy(cols)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cg.pack_gather_rows(mstate)
     with pytest.raises(ValueError, match="resource-dim mismatch"):
         cg.check_gather(ts, PodBatch(valid=tp.valid, req=tp.req[:, :2],
                                      req_present=tp.req_present[:, :2]),
                         torch.from_numpy(cols))
     with pytest.raises(ValueError, match="cols shape"):
         cg.check_gather(ts, tp, torch.from_numpy(cols[:3]))
-    assert cg.launches == before
+    assert cg.launches == before and cg.pack_launches == packs
 
 
 def test_validate_rejects_what_the_kernel_does_not_read():

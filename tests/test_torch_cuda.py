@@ -20,11 +20,13 @@ not installed:
   routes, odd M, chunk edges, stops mid-chunk, negative contributions, the
   int64 extremes, N = 0, caps), a refused launch raises, and
   ``gang_check_groups`` on ``device="cuda"`` ≡ ``"cpu"``;
-- the check_gather kernel ≡ its plain version (K in {4, 32, 64, 2048} ×
-  R in {3, 8, 16, 20}, all four variants, both forms, int64 extremes, pads,
-  invalid rows and pods, cols >= T), a refused launch raises, and the
-  wrapper enqueues the outputs' ``torch.empty`` and nothing else besides
-  its one launch.
+- the check_gather kernels ≡ their plain versions: the pack's records
+  byte for byte ≡ ``pack_gather_rows_reference``'s, padding included, and
+  the check ≡ ``check_gather_reference`` (K in {4, 32, 64, 2048} ×
+  R in {3, 8, 16, 20}, R in {33, 40}, all four variants, both forms, int64
+  extremes, pads, invalid rows and pods, cols >= T); a refused pack or
+  check launch raises, and the wrapper enqueues the outputs' and the
+  records' ``torch.empty`` and nothing else besides its two launches.
 """
 
 import dataclasses
@@ -43,7 +45,7 @@ from kube_throttler_tpu_torch.ops.schema import (
 
 # by its own name (pytest puts tests/ on the path): a package named ``tests``
 # installed elsewhere would shadow this directory
-from torch_gather_cases import EXTREMES, gather_arrays, gather_cell
+from torch_gather_cases import EXTREMES, WIDE, gather_arrays, gather_cell
 
 
 @pytest.fixture
@@ -531,11 +533,13 @@ def _gather_case(rng, P, K, T, R, device, extremes=False):
 def _assert_gather_kernel_matches_plain(state, pods, cols, on_equal, step3):
     from kube_throttler_tpu_torch.ops import check_gather as cg
 
-    before = cg.launches
+    before, packs = cg.launches, cg.pack_launches
     got = cg.check_gather(state, pods, cols, on_equal, step3, statuses=True)
     counts, sched = cg.check_gather(state, pods, cols, on_equal, step3)
+    packed = cg.pack_gather_rows(state)
     torch.cuda.synchronize()
-    assert cg.launches == before + 2
+    assert cg.launches == before + 2 and cg.pack_launches == packs + 3
+    assert torch.equal(packed, cg.pack_gather_rows_reference(state))
     want = cg.check_gather_reference(state, pods, cols, on_equal, step3, statuses=True)
     w_counts, w_sched = cg.check_gather_reference(state, pods, cols, on_equal, step3)
     assert got.dtype == torch.int8 and torch.equal(got, want)
@@ -551,6 +555,37 @@ def test_gather_kernel_matches_plain(card, K, R):
     case = _gather_case(np.random.default_rng(seed), P, K, T, R, card)
     for on_equal, step3 in VARIANTS:
         _assert_gather_kernel_matches_plain(*case, on_equal, step3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R", WIDE)
+def test_gather_kernel_matches_plain_past_32_dims(card, K, R):
+    """R > 32: two mask words a record, pods requesting dims on both
+    sides of 32."""
+    (P, K, T, R), seed = gather_cell(K, R, card=True)
+    case = _gather_case(np.random.default_rng(seed), P, K, T, R, card)
+    for on_equal, step3 in VARIANTS:
+        _assert_gather_kernel_matches_plain(*case, on_equal, step3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,extremes", [(3, True), (8, False), (33, True), (40, False)])
+def test_gather_pack_writes_every_byte(card, R, extremes):
+    """The pack kernel's records ≡ ``pack_gather_rows_reference``'s, byte
+    for byte, into memory the allocator hands back poisoned: every pad word
+    and every mask bit past R is written."""
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    state, _, _ = _gather_case(np.random.default_rng(R), 2, 4, 5000, R, card,
+                               extremes=extremes)
+    shape = (5000, cg.record_layout(R).words)
+    poison = torch.full(shape, -0x5A5A5A5A5A5A5A5B, dtype=torch.int64, device=card)
+    del poison  # the caching allocator hands this block to the pack's buffer
+    packed = cg.pack_gather_rows(state)
+    torch.cuda.synchronize()
+    want = cg.pack_gather_rows_reference(state)
+    assert packed.dtype == torch.int64 and tuple(packed.shape) == shape
+    assert torch.equal(packed.view(torch.uint8), want.view(torch.uint8))
 
 
 @pytest.mark.cuda
@@ -576,7 +611,8 @@ def test_gather_kernel_launch_failure_raises(card, monkeypatch):
     from kube_throttler_tpu_torch.ops import check_gather as cg
 
     state, pods, cols = _gather_case(np.random.default_rng(4), 64, 8, 40, 2, card)
-    monkeypatch.setattr(cg, "_launch_shape", lambda P: (2048, P))
+    real = cg._launch_shape
+    monkeypatch.setattr(cg, "_launch_shape", lambda *a: real(*a)._replace(threads=2048))
     before = cg.launches
     with pytest.raises(cd.KernelLaunchError, match="cudaError"):
         cg.check_gather(state, pods, cols)
@@ -584,11 +620,28 @@ def test_gather_kernel_launch_failure_raises(card, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_gather_pack_launch_failure_raises(card, monkeypatch):
+    """A pack launch its entry refuses (2048 threads a block) raises
+    KernelLaunchError before the check is launched, and counts neither."""
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    state, pods, cols = _gather_case(np.random.default_rng(4), 64, 8, 40, 2, card)
+    real = cg._launch_shape
+    monkeypatch.setattr(cg, "_launch_shape", lambda *a: real(*a)._replace(pack_threads=2048))
+    before, packs = cg.launches, cg.pack_launches
+    for call in (lambda: cg.check_gather(state, pods, cols, statuses=True),
+                 lambda: cg.pack_gather_rows(state)):
+        with pytest.raises(cd.KernelLaunchError, match="pack launch failed: cudaError"):
+            call()
+    assert cg.launches == before and cg.pack_launches == packs
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("statuses", [False, True])
 def test_check_gather_enqueues_one_kernel(card, statuses):
-    """Besides its launch, the wrapper runs no torch op on the card but the
-    outputs' allocations: the variant, the form and used + reserved are the
-    kernel's."""
+    """Besides its two launches, the wrapper runs no torch op on the card
+    but the outputs' and the records' allocations: the variant, the form
+    and used + reserved are the kernels'."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from kube_throttler_tpu_torch.ops import check_gather as cg
@@ -604,11 +657,11 @@ def test_check_gather_enqueues_one_kernel(card, statuses):
 
     state, pods, cols = _gather_case(np.random.default_rng(3), 300, 32, 100, 8, card)
     cg.check_gather(state, pods, cols)  # build and load outside the record
-    before = cg.launches
+    before, packs = cg.launches, cg.pack_launches
     with Record() as rec:
         got = cg.check_gather(state, pods, cols, True, False, statuses=statuses)
-    assert rec.ops == ["aten.empty.memory_format"] * (1 if statuses else 2)
-    assert cg.launches == before + 1
+    assert rec.ops == ["aten.empty.memory_format"] * (2 if statuses else 3)
+    assert cg.launches == before + 1 and cg.pack_launches == packs + 1
     want = cg.check_gather_reference(state, pods, cols, True, False, statuses=statuses)
     for g, w in zip((got,) if statuses else got, (want,) if statuses else want):
         assert torch.equal(g, w)

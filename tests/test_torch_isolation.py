@@ -15,8 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "kube_throttler_tpu")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "victim_timing.py"]
-    assert len(files) > 40 and files[-1].exists()
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "victim_timing.py",
+                                          REPO / "gather_timing.py"]
+    assert len(files) > 40 and all(f.exists() for f in files)
     return files
 
 

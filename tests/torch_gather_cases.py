@@ -14,6 +14,8 @@ EXTREMES = [0, 1, -1, 2**31, -(2**31), 2**32, -(2**32), 2**62, -(2**62),
 
 #: the (K, R) ladder of the gather cells
 LADDER = tuple((K, R) for K in (4, 32, 64, 2048) for R in (3, 8, 16, 20))
+#: cells past 32 dims, where a record's per-dim masks take two words
+WIDE = ((32, 33), (64, 40))
 
 
 def gather_cell(K: int, R: int, card: bool = False):
