@@ -34,8 +34,18 @@ class) must equal the sequential host oracle for every gang; the
 ``victim_select`` kernel must equal its plain version at five (N, M) cells
 and a sixth drawn from the int64 extremes, three caps each; and one
 ``maybe_preempt_gang`` must launch it once,
-evict the host oracle's victims and let the gang admit. One line per
-phase; then one
+evict the host oracle's victims and let the gang admit. One more
+``pre_filter_batch`` runs under ``utils.tracing.device_trace``
+(``torch.profiler``): whether the card's activity is traced, and its idle
+share of the call. Last, the daemon: the main path's cluster, written as a
+``--data-dir`` with the port's journal and snapshot code, is served by
+``python -m kube_throttler_tpu_torch.cli serve`` on the card; its HTTP
+batch (every verdict), tick and 200 single-pod answers must equal the
+in-process ones, ``/metrics`` must show the breaker closed and each batch
+kernel launched, and after a SIGTERM restart the same answers and a
+reservation must come back; then the embedded scheduler (``--nodes 4``)
+must bind the same pods through a preemption on the card as under
+``--no-device``. One line per phase; then one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -44,7 +54,9 @@ script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
 Everything runs in this one process (plus ``nvidia-smi``, six ``nvcc``
 processes started together — one per kernel source and one ``-Xptxas -v``
-report per source — and ``cuobjdump`` for the instruction counts).
+report per source — ``cuobjdump`` for the instruction counts, and the
+four daemons of the daemon phase, one at a time, each stopped by SIGTERM
+or killed on failure).
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,12 +116,26 @@ VICTIM_EXTREMES_CELL = (4096, 256)
 # whose Throttles and ClusterThrottle are roomy and that no earlier phase edits
 PREEMPT_POLICY = {"name": "smoke", "preemptionEnabled": True, "minPriorityGap": 1}
 PREEMPT_GROUP = 1
+# the embedded scheduler's policy: PREEMPT_POLICY with a floor between one
+# group's preemption cycles (docs/policy.md's anti-thrash knob). A cycle
+# reads its deficits from the throttles' published status.used, which drops
+# the evicted pods one reconcile later; without the floor, a retry inside
+# that lag evicts a second set of victims for the same deficit.
+SCHEDULER_POLICY = dict(PREEMPT_POLICY, preemptCooldownSeconds=10)
 # check_gather held against its plain version beyond the card tests' cells
 # (tests/torch_gather_cases.py): the tick's shape, 131072 pods × K = 32 ×
 # tcap 16384 × R = 8
 GATHER_TICK_CELL = (131072, 32, 16384, 8)
 # the coalescer phase: stored pods per check_pods_multi call
 COALESCE_PODS = 256
+# the daemon phase: a daemon's deadline from spawn to ready, its batch
+# calls, the stored pods of its single-pod check, and the label group whose
+# roomy Throttles and ClusterThrottle the fill pod's reservation fills
+DAEMON_DEADLINE_S = 600.0
+DAEMON_ROOT = HERE / "build" / "daemon-smoke"
+DAEMON_BATCH_CALLS = 3
+DAEMON_SINGLE_PODS = 200
+FILL_GROUP = 9
 # kernel instantiations ptxas must report per source (check_gather: 8
 # checks and the pack)
 PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 9, "victim_select": 9}
@@ -1379,6 +1406,522 @@ def drive_preempt(plugin, group: int):
                 geometry=victim_geometry(Mp))
 
 
+# --------------------------------------------------------------- trace
+
+
+def trace_batch(plugin, log_dir: Path) -> dict:
+    """One more ``pre_filter_batch`` under ``utils.tracing.device_trace``:
+    whether the profiler's CUDA activity (CUPTI) works on this machine,
+    and the share of the call's wall time the card was busy, from the
+    union of the trace's kernel, copy and memset intervals."""
+    from kube_throttler_tpu_torch.utils.tracing import device_trace
+
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with device_trace(str(log_dir)):
+        t0 = time.perf_counter()
+        plugin.pre_filter_batch()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    files = sorted(log_dir.glob("trace-*.json"))
+    if not files:
+        say("trace", written=False, cupti=False)
+        return {"written": False, "cupti": False}
+    events = json.loads(files[-1].read_text()).get("traceEvents", [])
+    gpu = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in gpu:
+        busy += max(stop - max(start, end), 0.0)
+        end = max(end, stop)
+    by_kernel = Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            by_kernel[e["name"][:80]] += e.get("dur", 0)
+    out = {"written": True, "cupti": bool(gpu), "gpu_events": len(gpu),
+           "device_busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3,
+           "idle_share": 1.0 - busy / wall_us,
+           "top_kernels_us": dict(by_kernel.most_common(6)),
+           "trace_bytes": files[-1].stat().st_size}
+    say("trace", **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in out.items()})
+    return out
+
+
+# --------------------------------------------------------------- daemon
+
+
+def write_data_dir(path: Path, store) -> dict:
+    """The cluster in ``store`` (statuses included) as a daemon's
+    ``--data-dir``, written with the port's own journal and snapshot code:
+    every object created through a journaled store, then a snapshot
+    anchored at the journal's end. Returns what was written."""
+    from kube_throttler_tpu_torch.engine.journal import attach
+    from kube_throttler_tpu_torch.engine.recovery import JOURNAL_FILE
+    from kube_throttler_tpu_torch.engine.snapshot import SnapshotManager
+    from kube_throttler_tpu_torch.engine.store import Store
+
+    t0 = time.perf_counter()
+    path.mkdir(parents=True)
+    copy = Store()
+    journal = attach(copy, str(path / JOURNAL_FILE))
+    try:
+        for ns in store.list_namespaces():
+            copy.create_namespace(ns)
+        ops = ([("create", "Throttle", t) for t in store.list_throttles()]
+               + [("create", "ClusterThrottle", t) for t in store.list_cluster_throttles()]
+               + [("create", "Pod", p) for p in store.list_pods()])
+        for i in range(0, len(ops), 10_000):
+            for res in copy.apply_events(ops[i:i + 10_000]):
+                if isinstance(res, Exception):
+                    raise res
+        snapshots = SnapshotManager(str(path), copy)
+        snapshots.journal = journal
+        snap = snapshots.write(reason="smoke")
+    finally:
+        journal.close()
+    check(snap is not None, "the data dir's snapshot was not written")
+    return dict(objects=len(ops) + len(store.list_namespaces()),
+                journal_bytes=(path / JOURNAL_FILE).stat().st_size,
+                snapshot_bytes=Path(snap).stat().st_size,
+                seconds=time.perf_counter() - t0)
+
+
+def status_json(status) -> dict:
+    """A framework Status in the HTTP surface's form (``server.py``)."""
+    return {"code": status.code.value, "reasons": list(status.reasons)}
+
+
+def fill_pods():
+    """Two pods of label group FILL_GROUP, neither stored: ``fill`` asks
+    for the whole cpu threshold of the group's roomy Throttles and
+    ClusterThrottle, so reserving it fills them; ``probe`` (100m) is
+    schedulable before that reservation and blocked after it."""
+    from kube_throttler_tpu_torch.api.pod import make_pod
+    from kube_throttler_tpu_torch.api.serialization import object_to_dict
+
+    labels = {"grp": f"g{FILL_GROUP}", "mod": f"m{FILL_GROUP % N_CLUSTER}"}
+    fill = make_pod("daemon-fill", labels=labels, requests={"cpu": "100000"})
+    probe = make_pod("daemon-probe", labels=labels, requests={"cpu": "100m"})
+    return object_to_dict(fill), object_to_dict(probe)
+
+
+def inprocess_answers(plugin, seed: int) -> dict:
+    """The in-process answers the daemon must give, on the state its data
+    dir holds: the tick; PreFilter of DAEMON_SINGLE_PODS seeded stored
+    pods; the probe's PreFilter, the fill pod's Reserve and the probe's
+    PreFilter again; then, with the fill pod reserved, the batch and the
+    tick. The fill pod is unreserved after, so the in-process state is as
+    before."""
+    from kube_throttler_tpu_torch.api.serialization import object_from_dict
+
+    store = plugin.store
+    tick = plugin.full_tick_sharded(1)
+    keys = sorted(random.Random(seed).sample(
+        sorted(p.key for p in store.list_pods()), DAEMON_SINGLE_PODS))
+    pods = {k: store.get_pod(*k.split("/", 1)) for k in keys}
+    answers = {k: status_json(plugin.pre_filter(pods[k])) for k in keys}
+    fill, probe = (object_from_dict(d) for d in fill_pods())
+    before = status_json(plugin.pre_filter(probe))
+    reserved = status_json(plugin.reserve(fill))
+    after = status_json(plugin.pre_filter(probe))
+    verdicts_reserved = plugin.pre_filter_batch()["schedulable"]
+    tick_reserved = plugin.full_tick_sharded(1)
+    plugin.unreserve(fill)
+    check(before["code"] == "Success", f"the probe pod is blocked before the fill: {before}")
+    check(reserved["code"] == "Success", f"the fill pod's reserve failed: {reserved}")
+    check(after["code"] != "Success", "the fill pod's reservation does not block the probe")
+    check(status_json(plugin.pre_filter(probe)) == before, "unreserve did not restore the probe")
+    return dict(keys=keys, answers=answers, before=before, reserved=reserved, after=after,
+                tick=tick, verdicts_reserved=verdicts_reserved, tick_reserved=tick_reserved)
+
+
+class Daemon:
+    """``python -m kube_throttler_tpu_torch.cli serve`` as a child process
+    of this smoke: its output drained by a thread (and echoed to a log
+    file), its port read from the serving line."""
+
+    def __init__(self, args, log: Path, deadline_s: float):
+        import queue
+        import threading
+
+        self.log = log
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PORT}.cli", "serve", "--name", "kube-throttler",
+             "--target-scheduler-name", "my-scheduler", "--host", "127.0.0.1",
+             "--port", "0", *args],
+            cwd=str(HERE), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        self.lines: "queue.Queue[str]" = queue.Queue()
+        self.seen: list = []
+        self.arrivals: list = []  # (seconds since spawn, line), as read
+        self.reader = threading.Thread(target=self._drain, daemon=True)
+        self.reader.start()
+        m = self.wait_for(r"serving on [\d.]+:(\d+)", deadline_s)
+        self.port = int(m.group(1))
+        while True:
+            try:
+                if self.get("/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - self.t0 < deadline_s, "the daemon never became ready")
+            time.sleep(0.1)
+        self.ready_s = time.perf_counter() - self.t0
+
+    def _drain(self) -> None:
+        with open(self.log, "a") as f:
+            for line in self.proc.stdout:
+                self.arrivals.append((time.perf_counter() - self.t0, line))
+                f.write(line)
+                self.lines.put(line)
+
+    def wait_for(self, pattern: str, deadline_s: float):
+        import queue
+
+        while True:
+            left = deadline_s - (time.perf_counter() - self.t0)
+            if left <= 0 or (self.proc.poll() is not None and self.lines.empty()):
+                tail = "".join(self.seen[-20:])
+                raise SmokeFailure(f"daemon: {pattern!r} not seen (rc {self.proc.poll()}):\n{tail}")
+            try:
+                line = self.lines.get(timeout=min(left, 0.5))
+            except queue.Empty:
+                continue
+            self.seen.append(line)
+            m = re.search(pattern, line)
+            if m:
+                return m
+
+    def line(self, pattern: str) -> str:
+        """The first line printed so far that matches ``pattern``."""
+        import queue
+
+        while True:
+            try:
+                self.seen.append(self.lines.get_nowait())
+            except queue.Empty:
+                break
+        return next((x.strip() for x in self.seen if re.search(pattern, x)), "")
+
+    def startup(self) -> dict:
+        """Seconds of each startup step, from the arrival of the lines the
+        CLI prints or logs as it ends each one: interpreter and imports,
+        recovery (its own report), the plugin's build (the informers'
+        cache-sync replay into the device mirror and the controllers),
+        prewarm, the recovery's reservation restore and reconcile through
+        the heap freeze to the serving line, then /readyz."""
+        def at(pattern: str) -> float:
+            return next(t for t, x in self.arrivals if re.search(pattern, x))
+
+        rec = re.search(r"journal events in ([\d.]+)s", self.line(r"^recovery: mode="))
+        recovery_s = float(rec.group(1))
+        t_rec, t_ctl = at(r"^recovery: mode="), at(r"Started ClusterThrottleController")
+        t_warm, t_serve = at(r"prewarmed"), at(r"serving on")
+        return {"imports": t_rec - recovery_s, "recovery": recovery_s,
+                "plugin_build": t_ctl - t_rec, "prewarm": t_warm - t_ctl,
+                "restore_to_serving": t_serve - t_warm, "serving_to_ready": self.ready_s - t_serve,
+                "total": self.ready_s}
+
+    def call(self, method: str, path: str, body=None, timeout: float = 300.0):
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}{path}", data=data, method=method,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                raw, code = resp.read(), resp.status
+        except urllib.error.HTTPError as e:
+            raw, code = e.read(), e.code
+        try:
+            return code, json.loads(raw)
+        except ValueError:
+            return code, raw.decode()
+
+    def get(self, path: str):
+        return self.call("GET", path)
+
+    def post(self, path: str, body=None):
+        return self.call("POST", path, {} if body is None else body)
+
+    def stop(self, timeout_s: float = 300.0) -> float:
+        """SIGTERM, then wait for the exit; fails unless it exits with 0.
+        Returns the seconds the shutdown took."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure("the daemon did not exit after SIGTERM")
+        self.reader.join(60.0)  # its last lines, the final snapshot's included
+        check(rc == 0, f"the daemon exited with {rc}")
+        return time.perf_counter() - t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def scrape(daemon: Daemon) -> dict:
+    """The /metrics numbers the device route shows: the breaker's state
+    (None without a device), the tracer's observation count per phase and
+    each kernel's launches."""
+    code, text = daemon.get("/metrics")
+    check(code == 200, f"/metrics answered {code}")
+    breaker = re.search(r"^kube_throttler_device_breaker_state (\S+)$", text, re.M)
+
+    def family(name: str, label: str) -> dict:
+        return {m.group(1): int(float(m.group(2))) for m in re.finditer(
+            rf'^{name}\{{{label}="([^"]+)"\}} (\S+)$', text, re.M)}
+
+    return {"breaker": float(breaker.group(1)) if breaker else None,
+            "phases": family("kube_throttler_phase_duration_seconds_count", "phase"),
+            "launches": family("kube_throttler_kernel_launches", "kernel")}
+
+
+def grown(after: dict, before: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+def daemon_reads(daemon: Daemon, single: dict, label: str, reserved: bool) -> dict:
+    """The daemon's batch calls, its tick and (``reserved``: the fill pod
+    is already reserved) the probe's PreFilter; printed and returned."""
+    out = {"batch": [], "batch_ms": []}
+    for i in range(DAEMON_BATCH_CALLS):
+        t0 = time.perf_counter()
+        code, body = daemon.post("/v1/prefilter-batch")
+        out["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+        check(code == 200, f"/v1/prefilter-batch answered {code}: {str(body)[:300]}")
+        out["batch"].append(body)
+        say("daemon", step=f"{label}-batch", call=i, wall_ms=f"{out['batch_ms'][-1]:.3f}",
+            verdicts=len(body["schedulable"]), errors=len(body["errors"]))
+    t0 = time.perf_counter()
+    code, out["tick"] = daemon.post("/v1/tick", {"devices": 1})
+    out["tick_ms"] = (time.perf_counter() - t0) * 1e3
+    check(code == 200, f"/v1/tick answered {code}: {str(out['tick'])[:300]}")
+    _, probe = fill_pods()
+    out["probe"] = daemon.post("/v1/prefilter", probe)[1]
+    say("daemon", step=f"{label}-tick", wall_ms=f"{out['tick_ms']:.3f}",
+        mesh=json.dumps(out["tick"]["mesh"]), verdicts=len(out["tick"]["schedulable"]),
+        probe=out["probe"]["code"])
+    want_probe = single["after"] if reserved else single["before"]
+    check(out["probe"] == want_probe, f"{label}: the probe's PreFilter {out['probe']}")
+    return out
+
+
+def check_reads(reads: dict, verdicts: dict, tick: dict, label: str) -> None:
+    for body in reads["batch"]:
+        check(body["errors"] == [] and len(body["schedulable"]) == N_PODS,
+              f"{label}: batch verdicts missing")
+        diff = sum(body["schedulable"].get(k) is not v for k, v in verdicts.items())
+        check(diff == 0, f"{label}: {diff} HTTP batch verdicts differ from the in-process ones")
+    got = reads["tick"]
+    check(got["mesh"] == [1, 1] and got["errors"] == [], f"{label}: tick {got['mesh']}")
+    check(got["schedulable"] == tick["schedulable"],
+          f"{label}: the HTTP tick's verdicts differ from the in-process tick's")
+    check(got["used"] == tick["used"],
+          f"{label}: the HTTP tick's used counts differ from the in-process tick's")
+
+
+def scheduler_manifests():
+    """The embedded scheduler's cluster, in three stages. Stage 1: Throttle
+    ``t-a`` (400m) saturated by four running 100m pods of group a (a
+    priority-0 gang of two, then two priority-1 singles), ``t-b`` (3 pods)
+    and ClusterThrottle ``c-b`` (4 pods) over three pods of group b, and
+    ``t-c`` (1 cpu) over a gang of three 300m pods. Stage 2, once those
+    are bound: two more pods of group b, which the full ``t-b`` blocks.
+    Stage 3: a priority-5 gang of two 100m pods of group a, which ``t-a``
+    admits only after preemption evicts 200m of lower-priority work.
+
+    Group b's two extra pods come only after its first three are bound
+    and counted: a reservation stays until the controller has written the
+    pod into ``status.used`` and then released it, and a pod checked in
+    the few ms between the two sees the bound pod twice and waits
+    (``controllers/base.py``, on either route). Sent together, five pods
+    for three places went to whichever the loop checked outside that
+    window."""
+    from kube_throttler_tpu_torch.api.pod import make_pod
+    from kube_throttler_tpu_torch.api.serialization import object_to_dict
+
+    def throttle(name, grp, **threshold):
+        return {"kind": "Throttle", "metadata": {"name": name, "namespace": "default"},
+                "spec": {"throttlerName": "kube-throttler", "threshold": threshold,
+                         "selector": {"selectorTerms": [
+                             {"podSelector": {"matchLabels": {"grp": grp}}}]}}}
+
+    def pod(name, grp, cpu, **kw):
+        d = object_to_dict(make_pod(name, labels={"grp": grp}, requests={"cpu": cpu}, **kw))
+        d["kind"] = "Pod"
+        return d
+
+    stage1 = [
+        throttle("t-a", "a", resourceRequests={"cpu": "400m"}),
+        throttle("t-b", "b", resourceCounts={"pod": 3}),
+        throttle("t-c", "c", resourceRequests={"cpu": "1"}),
+        {"kind": "ClusterThrottle", "metadata": {"name": "c-b"},
+         "spec": {"throttlerName": "kube-throttler", "threshold": {"resourceCounts": {"pod": 4}},
+                  "selector": {"selectorTerms": [
+                      {"podSelector": {"matchLabels": {"grp": "b"}}}]}}},
+    ]
+    stage1 += [pod(f"vg{i}", "a", "100m", priority=0, group="victims", group_size=2)
+               for i in range(2)]
+    stage1 += [pod(f"vs{i}", "a", "100m", priority=1) for i in range(2)]
+    stage1 += [pod(f"b{i}", "b", "200m") for i in range(3)]
+    stage1 += [pod(f"cg{i}", "c", "300m", group="cgang", group_size=3) for i in range(3)]
+    stage2 = [pod(f"b{i}", "b", "200m") for i in range(3, 5)]
+    stage3 = [pod(f"hi-r{i}", "a", "100m", priority=5, group="hi", group_size=2)
+              for i in range(2)]
+    return stage1, stage2, stage3
+
+
+def scheduler_settle(daemon: Daemon, want_bound=(), timeout_s: float = 120.0,
+                     quiet_s: float = 6.0):
+    """{pod key: node} of the daemon's pods once every key of
+    ``want_bound`` is bound and nothing changed for ``quiet_s`` (longer
+    than the scheduler's 5 s backoff cap)."""
+    t0 = time.perf_counter()
+    last, since = None, time.perf_counter()
+    while True:
+        code, pods = daemon.get("/v1/pods")
+        check(code == 200, f"/v1/pods answered {code}")
+        cur = {p["key"]: p["nodeName"] for p in pods}
+        now = time.perf_counter()
+        if cur != last:
+            last, since = cur, now
+        if all(cur.get(k) for k in want_bound) and now - since >= quiet_s:
+            return cur
+        check(now - t0 < timeout_s, f"the embedded scheduler did not settle: {cur}")
+        time.sleep(0.2)
+
+
+def drive_scheduler_daemon(root: Path, device: bool) -> dict:
+    """The embedded scheduler (``--nodes 4``) of a small daemon, on the card
+    or under ``--no-device``: each stage applied, then settled. Returns the
+    bound pods, the evicted ones and the /metrics reading."""
+    stage1, stage2, stage3 = scheduler_manifests()
+    config = root / "scheduler-config.yaml"
+    # JSON is YAML: the plugin args with a preemption policy
+    config.write_text(json.dumps({"name": "kube-throttler", "targetSchedulerName": "my-scheduler",
+                                  "policies": [dict(SCHEDULER_POLICY)]}))
+    label = "device" if device else "no-device"
+    args = ["--config", str(config), "--nodes", "4",
+            "--node-allocatable", "cpu=8,memory=32Gi"]
+    args += [] if device else ["--no-device"]
+    daemon = Daemon(args, root / f"scheduler-{label}.log", DAEMON_DEADLINE_S)
+    try:
+        running = ["default/vg0", "default/vg1", "default/vs0", "default/vs1", "default/cg0",
+                   "default/b0", "default/b1", "default/b2"]
+        for d in stage1:
+            check(daemon.post("/v1/objects", d)[0] == 200, f"applying {d['metadata']['name']}")
+        scheduler_settle(daemon, running)
+        for d in stage2:
+            check(daemon.post("/v1/objects", d)[0] == 200, f"applying {d['metadata']['name']}")
+        first = scheduler_settle(daemon, running)
+        for d in stage3:
+            check(daemon.post("/v1/objects", d)[0] == 200, f"applying {d['metadata']['name']}")
+        final = scheduler_settle(daemon, ["default/hi-r0", "default/hi-r1"])
+        metrics = scrape(daemon)
+        daemon.stop()
+    finally:
+        daemon.kill()
+    bound = sorted(k for k, node in final.items() if node)
+    evicted = sorted(set(first) - set(final))
+    say("daemon", step=f"scheduler-{label}", ready_s=f"{daemon.ready_s:.3f}",
+        bound=json.dumps(bound), evicted=json.dumps(evicted),
+        pending=json.dumps(sorted(k for k, node in final.items() if not node)),
+        breaker=metrics["breaker"], kernel_launches=json.dumps(metrics["launches"]),
+        prewarm=repr(daemon.line(r"prewarmed")))
+    return dict(bound=bound, evicted=evicted, metrics=metrics)
+
+
+def drive_daemon(data_dir: Path, single: dict, verdicts: dict) -> dict:
+    """The ``[daemon]`` phase: ``serve --data-dir`` over the main path's
+    cluster on the card; its HTTP batch, tick and single-pod answers held
+    against the in-process ones; /metrics read; a SIGTERM restart on the
+    same dir; then the embedded scheduler on the card against
+    ``--no-device``."""
+    root = data_dir.parent
+    recovery_re = r"^recovery: mode="
+    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S)
+    try:
+        say("daemon", step="start", spawn_to_ready_s=f"{daemon.ready_s:.3f}",
+            startup_s=json.dumps(daemon.startup()),
+            recovery=repr(daemon.line(recovery_re)), prewarm=repr(daemon.line(r"prewarmed")))
+        check(daemon.line(r"device=cuda"), "the daemon does not serve on the card")
+        m0 = scrape(daemon)
+        # the single-pod path, against the in-process answers
+        differ = sum(daemon.post("/v1/prefilter", {"podKey": k})[1] != single["answers"][k]
+                     for k in single["keys"])
+        reads = daemon_reads(daemon, single, "first", reserved=False)
+        fill, _ = fill_pods()
+        reserved = daemon.post("/v1/reserve", fill)[1]
+        _, probe = fill_pods()
+        after = daemon.post("/v1/prefilter", probe)[1]
+        say("daemon", step="single-pod", pods=len(single["keys"]), differ=differ,
+            reserve=reserved["code"], probe_after=after["code"])
+        check(differ == 0, f"{differ} single-pod PreFilter answers differ from the in-process ones")
+        check(reserved == single["reserved"] and after == single["after"],
+              f"the fill pod's reserve {reserved} / the probe after it {after}")
+        check_reads(reads, verdicts, single["tick"], "first")
+        m1 = scrape(daemon)
+        grew = grown(m1["phases"], m0["phases"])
+        launched = grown(m1["launches"], m0["launches"])
+        say("daemon", step="metrics", breaker_state=m1["breaker"],
+            batch_dispatch=grew.get("batch_dispatch"), tick_device=grew.get("tick_device"),
+            kernel_launches=json.dumps(launched, sort_keys=True))
+        check(m1["breaker"] == 0, f"the device breaker is in state {m1['breaker']}")
+        check(grew.get("batch_dispatch", 0) >= DAEMON_BATCH_CALLS
+              and grew.get("tick_device", 0) >= 1,
+              f"the device phases were not observed: {grew}")
+        # each batch call and the tick launch both batch kernels once at least
+        for name in ("check_dense", "check_gather"):
+            check(launched.get(name, 0) >= DAEMON_BATCH_CALLS + 1,
+                  f"{name} launched {launched.get(name)} times in the daemon's calls")
+        check(launched.get("pack_gather_rows") == launched.get("check_gather"),
+              "the daemon's check_gather launches and packs differ")
+        stop_s = daemon.stop()
+        shutdown = daemon.line(r"written \(shutdown")
+        say("daemon", step="sigterm", exit_code=0, shutdown_s=f"{stop_s:.3f}",
+            snapshot=repr(shutdown))
+        check(shutdown, "the daemon wrote no final snapshot")
+    finally:
+        daemon.kill()
+
+    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S)
+    try:
+        say("daemon", step="restart", spawn_to_ready_s=f"{daemon.ready_s:.3f}",
+            startup_s=json.dumps(daemon.startup()),
+            recovery=repr(daemon.line(recovery_re)), prewarm=repr(daemon.line(r"prewarmed")))
+        again = daemon_reads(daemon, single, "restart", reserved=True)
+        # the fill pod's reservation came back from the data dir
+        check_reads(again, single["verdicts_reserved"], single["tick_reserved"], "restart")
+        check(scrape(daemon)["breaker"] == 0, "the device breaker opened after the restart")
+        daemon.stop()
+    finally:
+        daemon.kill()
+
+    on_card = drive_scheduler_daemon(root, device=True)
+    host = drive_scheduler_daemon(root, device=False)
+    check(on_card["metrics"]["breaker"] == 0, "the scheduler daemon's breaker opened")
+    check(on_card["bound"] == host["bound"] and on_card["evicted"] == host["evicted"],
+          "the embedded scheduler's bound set differs from --no-device's: "
+          f"bound {on_card['bound']} against {host['bound']}, "
+          f"evicted {on_card['evicted']} against {host['evicted']}")
+    check(len(on_card["evicted"]) == 2 and "default/hi-r0" in on_card["bound"],
+          f"the high-priority gang did not preempt: {on_card}")
+    check(on_card["metrics"]["launches"].get("victim_select", 0) >= 1,
+          "the scheduler daemon's preemption did not launch victim_select")
+    return dict(launches=launched, scheduler_launches=on_card["metrics"]["launches"])
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -1512,6 +2055,17 @@ def run() -> int:
               "batch verdicts disagree with the host oracle")
         check(all(res["cluster_tally"][k] > 0 for k in res["cluster_tally"]),
               "the ClusterThrottle kind did not produce all four outcomes")
+        verdicts = res["verdicts"]
+
+        # -- the daemon's data dir: the main path's cluster as it stands now,
+        # and the in-process answers the daemon must give on it
+        shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
+        written = write_data_dir(DAEMON_ROOT / "data", plugin.store)
+        say("daemon", step="data-dir", objects=written["objects"],
+            journal_bytes=written["journal_bytes"], snapshot_bytes=written["snapshot_bytes"],
+            seconds=f"{written['seconds']:.3f}")
+        single = inprocess_answers(plugin, SEED + 8)
+        trace_batch(plugin, HERE / "build" / "traces")
 
         # -- kernel times at the shape the main path gave it (its own data)
         dm = plugin.device_manager
@@ -1615,6 +2169,14 @@ def run() -> int:
         variants.append(v)
         say("variant", **{k: json.dumps(x) if isinstance(x, dict) else x for k, x in v.items()})
 
+    # -- the daemon over the main path's cluster, then the embedded scheduler
+    del s_mask, s_pre, s_pods, w_pre, w_pods, w_mask
+    torch.cuda.empty_cache()
+    try:
+        daemon = drive_daemon(DAEMON_ROOT / "data", single, verdicts)
+    finally:
+        shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
+
     kernels = {"kernels": [{
         "name": "check_dense",
         "route": "cuda",
@@ -1623,6 +2185,7 @@ def run() -> int:
         "launches": res["launches"],
         "tick_launches": tick["launches"],
         "dense_tick_launches": tick["dense_launches"],
+        "daemon_launches": daemon["launches"]["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -1645,6 +2208,7 @@ def run() -> int:
         "source": f"{PORT}/csrc/victim_select.cu",
         "replaces": "kube_throttler_tpu/ops/victim_select.py:44",
         "launches": preempt["launches"],
+        "daemon_launches": daemon["scheduler_launches"]["victim_select"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -1664,6 +2228,7 @@ def run() -> int:
         "replaces": "kube_throttler_tpu/ops/check.py:228",
         "launches": res["gather_launches"],
         "tick_launches": tick["gather_launches"],
+        "daemon_launches": daemon["launches"]["check_gather"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,

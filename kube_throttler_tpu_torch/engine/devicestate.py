@@ -1515,8 +1515,9 @@ class DeviceStateManager:
         )
 
     def prewarm(self) -> int:
-        """Bring the device mirror up before serving: load the dense and
-        gather kernel libraries (building them if needed), upload both
+        """Bring the device mirror up before serving: load the dense,
+        gather and victim-selection kernel libraries (building them if
+        needed), upload both
         kinds' state, pods and batch operands, and launch each kind's batch
         route once (sparse gather or dense kernel, whichever
         ``_rebuild_cols`` chose) plus the packed single-pod check,
@@ -1524,11 +1525,13 @@ class DeviceStateManager:
         first served call pays no build, upload or first-launch cost.
         Returns the number of dispatches issued. Call after cache sync,
         before serving."""
+        from ..ops import victim_select as _victim_select
         from ..ops.fastcheck import fast_check_pod_packed
 
         if self.device.type == "cuda":
             _check_dense.load_library()
             _check_gather.load_library()
+            _victim_select.load_library()
         n = 0
         for kind in ("throttle", "clusterthrottle"):
             ks = self._kind(kind)

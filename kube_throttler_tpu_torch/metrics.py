@@ -63,6 +63,8 @@ METRIC_NAMES = frozenset(
         "kube_throttler_status_flip_lag_seconds",
         # device circuit breaker (register_breaker_metrics)
         "kube_throttler_device_breaker_state",
+        # hand-written CUDA kernels' launch counts (register_kernel_metrics)
+        "kube_throttler_kernel_launches",
         # watch fan-out health (register_watch_metrics)
         "kube_throttler_watch_streams_open",
         "kube_throttler_watch_queue_depth",
@@ -629,6 +631,32 @@ def register_breaker_metrics(registry: Registry, device_manager) -> GaugeVec:
             (), _BREAKER_STATE_VALUES.get(device_manager.breaker_state(), 0.0)
         )
     )
+    return gauge
+
+
+def register_kernel_metrics(registry: Registry) -> GaugeVec:
+    """Launches of each hand-written CUDA kernel in this process since it
+    started, read at scrape time from the wrappers' counters (which count
+    kernel launches only, never the plain versions run on CPU tensors): an
+    operator's proof that served calls went through the card's kernels."""
+    gauge = registry.gauge_vec(
+        "kube_throttler_kernel_launches",
+        "launches of each hand-written CUDA kernel in this process",
+        ["kernel"],
+    )
+
+    def refresh() -> None:
+        from .ops import check_dense, check_gather, victim_select
+
+        for label, n in (
+            ("check_dense", check_dense.launches),
+            ("check_gather", check_gather.launches),
+            ("pack_gather_rows", check_gather.pack_launches),
+            ("victim_select", victim_select.launches),
+        ):
+            gauge.set_key((label,), float(n))
+
+    registry.register_pre_expose(refresh)
     return gauge
 
 

@@ -6,7 +6,9 @@ exact result statuses, reason-string formats, and Warning-event emission
 reservations (217-257); EventsToRegister mirrors the requeue hints (263-279).
 
 The device is explicit: ``device=None`` means CUDA (raising without it);
-pass ``device="cpu"`` to run the device data plane on the CPU.
+pass ``device="cpu"`` to run the device data plane on the CPU. With
+``use_device=False`` no device is resolved or touched: the host oracle
+answers every call, as ``serve --no-device`` asks.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ..metrics import (
     StatusLagMetrics,
     ThrottleMetricsRecorder,
     register_breaker_metrics,
+    register_kernel_metrics,
     register_watch_metrics,
 )
 from ..parallel.mesh import make_mesh
@@ -63,7 +66,6 @@ class KubeThrottler:
         status_writer=None,
         device=None,
     ):
-        device = resolve_device(device)
         clock = clock or RealClock()
         self.args = args
         self.store = store
@@ -76,7 +78,10 @@ class KubeThrottler:
         # then reconciles against device state >= the event.
         self.device_manager = (
             DeviceStateManager(
-                store, args.name, args.target_scheduler_name, device=device
+                store,
+                args.name,
+                args.target_scheduler_name,
+                device=resolve_device(device),
             )
             if use_device
             else None
@@ -141,6 +146,7 @@ class KubeThrottler:
                 ["surface"],
             )
             register_breaker_metrics(self.metrics_registry, self.device_manager)
+            register_kernel_metrics(self.metrics_registry)
             # reservation replay onto freshly allocated device columns
             # (throttle re-creation / throttlerName handover) reads these
             self.device_manager.reservation_sources = {

@@ -14,14 +14,18 @@ equivalent here is richer, per the survey's prescription:
   :func:`vlog` map V-levels onto the stdlib logger the way klog maps them
   onto --v (V(2)≈INFO detail … V(5)≈trace). The daemon's
   ``PUT /debug/flags/v`` analog calls ``set_verbosity`` at runtime.
-- :func:`device_trace` — device kernel traces; not ported yet (raises).
+- :func:`device_trace` — context manager around ``torch.profiler`` (CPU
+  and CUDA activities) writing a Chrome trace into a directory; no-op
+  when profiling is unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 from .lockorder import make_lock
 
@@ -130,6 +134,33 @@ class NoopTracer(PhaseTracer):
         self._hist = _NoopHist()
 
 
-def device_trace(log_dir: str):
-    """Device kernel trace of an enclosed block: not ported yet."""
-    raise NotImplementedError("device_trace: ROADMAP queue 1 item 10")
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the enclosed block (CPU
+    activity, plus CUDA when a card is present) and write it as a Chrome
+    trace, ``trace-<pid>-<ns>.json``, into ``log_dir``. No-op with one
+    warning if the profiler cannot start or stop."""
+    prof = None
+    try:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+    except Exception as e:  # backend-dependent
+        logger.warning("device_trace unavailable: %s", e)
+        prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                os.makedirs(log_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+                )
+            except Exception as e:
+                logger.warning("stop_trace failed: %s", e)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``kube_throttler_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``kube_throttler_tpu`` —
-at module level or inside a function — and the port's entry points refuse
+"""The port stands alone: no module of ``kube_throttler_tpu_torch``, not
+``chip_smoke.py`` and not the ``tools/*_torch.py`` harnesses imports
+``jax``, ``jaxlib`` or ``kube_throttler_tpu`` — at module level or inside
+a function — and the port's entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -17,6 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "kube_throttler_tpu")
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "victim_timing.py",
                                           REPO / "gather_timing.py"]
+    # the chaos harnesses' copies that drive the port
+    files += sorted((REPO / "tools").glob("*_torch.py"))
     assert len(files) > 40 and all(f.exists() for f in files)
     return files
 
