@@ -45,7 +45,15 @@ in-process ones, ``/metrics`` must show the breaker closed and each batch
 kernel launched, and after a SIGTERM restart the same answers and a
 reservation must come back; then the embedded scheduler (``--nodes 4``)
 must bind the same pods through a preemption on the card as under
-``--no-device``. One line per phase; then one
+``--no-device``. Last, the sharded fleet: an ``AdmissionFront`` in this
+process over a ``ShardSupervisor``'s 4 worker processes on the card
+serves the main path's cluster; every batch verdict, 200 single-pod
+answers and a two-phase reserve must equal the in-process ones, each
+worker must report the card and its ``check_gather`` and ``check_dense``
+launches, and a SIGKILLed worker must come back on the card with every
+verdict; then ``serve --shards 4`` as a child process must answer an HTTP
+batch over a smaller cluster as the in-process plugin does and leave no
+worker after SIGTERM. One line per phase; then one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -56,13 +64,16 @@ Everything runs in this one process (plus ``nvidia-smi``, six ``nvcc``
 processes started together — one per kernel source and one ``-Xptxas -v``
 report per source — ``cuobjdump`` for the instruction counts, and the
 four daemons of the daemon phase, one at a time, each stopped by SIGTERM
-or killed on failure).
+or killed on failure; the shards phase's 4 workers (5 with the SIGKILLed
+one's replacement), stopped with their supervisor, and its sharded daemon
+with its 4 workers, stopped by SIGTERM).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import random
 import re
 import shutil
@@ -71,6 +82,7 @@ import sys
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -136,6 +148,15 @@ DAEMON_ROOT = HERE / "build" / "daemon-smoke"
 DAEMON_BATCH_CALLS = 3
 DAEMON_SINGLE_PODS = 200
 FILL_GROUP = 9
+# the shards phase: worker processes of the sharded fleet, all on the one
+# card; its batch calls; the deadline of a fleet's start and of each wait;
+# and the CLI leg's smaller cluster (pods, Throttles, label groups,
+# ClusterThrottles), posted over HTTP
+SHARDS = 4
+SHARDS_BATCH_CALLS = 3
+SHARDS_DEADLINE_S = 600.0
+SHARDS_ROOT = HERE / "build" / "shards-smoke"
+CLI_SHARDS_CLUSTER = (1_000, 100, 50, 2)
 # kernel instantiations ptxas must report per source (check_gather: 8
 # checks and the pack)
 PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 9, "victim_select": 9}
@@ -604,25 +625,21 @@ def sass_counts(library: str):
 # --------------------------------------------------------------- main path
 
 
-def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
-    """The served stack, from the port alone: store → device mirror →
-    controllers. Throttle i selects label group ``g{i % groups}``; its
-    threshold blocks every 5th (cpu) or 7th (pod count) group in its last
-    two tiers and is roomy otherwise. ClusterThrottle j selects the groups
-    ≡ j (mod n_cluster) and takes one of four threshold shapes so all four
-    statuses occur: cpu 300m (exceeds / active), roomy (not-throttled),
-    used + 300m cpu (insufficient / not-throttled), and a pod count below
-    its pod count (active)."""
-    from dataclasses import replace
-
+def cluster_objects(n_pods, n_throttles, groups, n_cluster, seed):
+    """The main path's cluster as the port's objects: the namespace, the
+    Throttles, the ClusterThrottles and the pods. Throttle i selects label
+    group ``g{i % groups}``; its threshold blocks every 5th (cpu) or 7th
+    (pod count) group in its last two tiers and is roomy otherwise.
+    ClusterThrottle j selects the groups ≡ j (mod n_cluster) and takes one
+    of four threshold shapes so all four statuses occur: cpu 300m (exceeds
+    / active), roomy (not-throttled), used + 300m cpu (insufficient /
+    not-throttled), and a pod count below its pod count (active)."""
     from kube_throttler_tpu_torch.api.pod import Namespace, make_pod
     from kube_throttler_tpu_torch.api.types import (
         ClusterThrottle, ClusterThrottleSelector, ClusterThrottleSelectorTerm,
         ClusterThrottleSpec, LabelSelector, ResourceAmount, Throttle,
         ThrottleSelector, ThrottleSelectorTerm, ThrottleSpec,
     )
-    from kube_throttler_tpu_torch.engine.store import Store
-    from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 
     rng = random.Random(seed)
     pod_plan = [(rng.randrange(groups), rng.randrange(1, 8) * 100) for _ in range(n_pods)]
@@ -632,14 +649,9 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
         cl_cpu[g % n_cluster] += cpu
         cl_cnt[g % n_cluster] += 1
 
-    store = Store()
-    plugin = KubeThrottler(
-        decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
-        store, use_device=True, device=device,
-    )
-    store.create_namespace(Namespace("default"))
     roomy = ResourceAmount.of(pod=10**6, requests={"cpu": "100000"})
     tiers = max(n_throttles // groups, 1)
+    throttles = []
     for i in range(n_throttles):
         g, tier = i % groups, i // groups
         if tier == tiers - 1 and g % 5 == 0:
@@ -648,7 +660,7 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
             threshold = ResourceAmount.of(pod=50)
         else:
             threshold = roomy
-        store.create_throttle(Throttle(
+        throttles.append(Throttle(
             name=f"t{i}",
             spec=ThrottleSpec(
                 throttler_name="kube-throttler", threshold=threshold,
@@ -657,6 +669,7 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
                 )),
             ),
         ))
+    cluster_throttles = []
     for j in range(n_cluster):
         shape = j % 4
         if shape == 0:
@@ -667,7 +680,7 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
             threshold = ResourceAmount.of(requests={"cpu": f"{cl_cpu[j] + 300}m"})
         else:
             threshold = ResourceAmount.of(pod=max(cl_cnt[j] // 2, 1))
-        store.create_cluster_throttle(ClusterThrottle(
+        cluster_throttles.append(ClusterThrottle(
             name=f"c{j}",
             spec=ClusterThrottleSpec(
                 throttler_name="kube-throttler", threshold=threshold,
@@ -678,18 +691,43 @@ def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
                 )),
             ),
         ))
-    chunk = []
-    for i, (g, cpu) in enumerate(pod_plan):
-        pod = make_pod(
+    pods = [
+        make_pod(
             f"p{i}", labels={"grp": f"g{g}", "mod": f"m{g % n_cluster}"},
             requests={"cpu": f"{cpu}m"}, node_name="node-1", phase="Running",
         )
-        chunk.append(("create", "Pod", pod))
-        if len(chunk) == 10_000 or i == n_pods - 1:
-            for res in store.apply_events(chunk):
-                if isinstance(res, Exception):
-                    raise res
-            chunk = []
+        for i, (g, cpu) in enumerate(pod_plan)
+    ]
+    return Namespace("default"), throttles, cluster_throttles, pods
+
+
+def load_cluster(store, objects) -> None:
+    """Create ``cluster_objects``' objects in ``store``: the namespace, each
+    Throttle and ClusterThrottle, then the pods in batches of 10,000."""
+    namespace, throttles, cluster_throttles, pods = objects
+    store.create_namespace(namespace)
+    for t in throttles:
+        store.create_throttle(t)
+    for t in cluster_throttles:
+        store.create_cluster_throttle(t)
+    for i in range(0, len(pods), 10_000):
+        for res in store.apply_events([("create", "Pod", p) for p in pods[i:i + 10_000]]):
+            if isinstance(res, Exception):
+                raise res
+
+
+def build_cluster(device, n_pods, n_throttles, groups, n_cluster, seed):
+    """The served stack, from the port alone: store → device mirror →
+    controllers, over ``cluster_objects``."""
+    from kube_throttler_tpu_torch.engine.store import Store
+    from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
+
+    store = Store()
+    plugin = KubeThrottler(
+        decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
+        store, use_device=True, device=device,
+    )
+    load_cluster(store, cluster_objects(n_pods, n_throttles, groups, n_cluster, seed))
     return plugin
 
 
@@ -1538,12 +1576,12 @@ class Daemon:
     of this smoke: its output drained by a thread (and echoed to a log
     file), its port read from the serving line."""
 
-    def __init__(self, args, log: Path, deadline_s: float):
+    def __init__(self, args, log: Path, deadline_s: float, env=None):
         import queue
         import threading
 
         self.log = log
-        env = dict(os.environ)
+        env = {**os.environ, **(env or {})}
         env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
@@ -1558,16 +1596,20 @@ class Daemon:
         self.arrivals: list = []  # (seconds since spawn, line), as read
         self.reader = threading.Thread(target=self._drain, daemon=True)
         self.reader.start()
-        m = self.wait_for(r"serving on [\d.]+:(\d+)", deadline_s)
-        self.port = int(m.group(1))
-        while True:
-            try:
-                if self.get("/readyz")[0] == 200:
-                    break
-            except OSError:
-                pass
-            check(time.perf_counter() - self.t0 < deadline_s, "the daemon never became ready")
-            time.sleep(0.1)
+        try:
+            m = self.wait_for(r"serving on [\d.]+:(\d+)", deadline_s)
+            self.port = int(m.group(1))
+            while True:
+                try:
+                    if self.get("/readyz")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() - self.t0 < deadline_s, "the daemon never became ready")
+                time.sleep(0.1)
+        except BaseException:
+            self.kill()
+            raise
         self.ready_s = time.perf_counter() - self.t0
 
     def _drain(self) -> None:
@@ -1922,6 +1964,345 @@ def drive_daemon(data_dir: Path, single: dict, verdicts: dict) -> dict:
     return dict(launches=launched, scheduler_launches=on_card["metrics"]["launches"])
 
 
+# --------------------------------------------------------------- shards
+
+
+def compute_apps() -> list:
+    """``nvidia-smi``'s compute processes: one line per CUDA context on the
+    card. Where the card's machine runs in a PID namespace of its own,
+    every line can read the same pid, so the phase counts the lines."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return [x.strip() for x in proc.stdout.splitlines() if x.strip()]
+
+
+def workers_of(pid: int) -> list:
+    """The pids of ``pid``'s live shard worker processes (from ``/proc``;
+    the shared-memory lane's resource tracker is a child too)."""
+    out = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rpartition(")")[2].split()
+            cmdline = (stat.parent / "cmdline").read_bytes()
+        except OSError:
+            continue
+        if (int(fields[1]) == pid and fields[0] != "Z"
+                and f"{PORT}.sharding.worker".encode() in cmdline):
+            out.append(int(stat.parent.name))
+    return sorted(out)
+
+
+def alive(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rpartition(")")[2].split()[0]
+    except OSError:
+        return False
+    return state != "Z"
+
+
+def normalized(status: dict) -> tuple:
+    """A status's code and its reasons, the throttle names of each sorted
+    and the reasons sorted: the scatter front composes one reason per shard
+    and kind, so its order of names is not the single process's."""
+    reasons = []
+    for r in status["reasons"]:
+        head, _, names = r.partition("=")
+        reasons.append(f"{head}={','.join(sorted(names.split(',')))}")
+    return status["code"], sorted(reasons)
+
+
+def verdicts_differ(out: dict, want: dict) -> int:
+    """How many of ``want``'s verdicts a batch result misses or gets wrong,
+    plus every verdict it has beyond them and every error."""
+    got = out["schedulable"]
+    return (sum(got.get(k) is not v for k, v in want.items())
+            + len(got.keys() - want.keys()) + len(out["errors"]))
+
+
+@contextmanager
+def stderr_to(path: Path):
+    """Point file descriptor 2 at ``path`` while the block runs, so the
+    worker processes spawned in it (and respawned while it runs) log there
+    and not over this smoke's output."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    try:
+        with open(path, "a") as f:
+            os.dup2(f.fileno(), 2)
+            yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def shard_stats(front) -> dict:
+    """Each worker's ``stats`` answer: its device, kernel launches and
+    objects; a worker that does not answer fails the phase."""
+    shards = front.stats()["shards"]
+    for sid, st in shards.items():
+        check(st.get("alive"), f"shard {sid} did not answer stats: {st}")
+    return shards
+
+
+def check_shard_launches(before: dict, after: dict, calls: int) -> dict:
+    """Each worker's kernel launches over ``calls`` batch calls: check_gather
+    (with its pack) at least once a call on a shard holding Throttles,
+    check_dense at least once a call on one holding ClusterThrottles."""
+    per_shard = {}
+    for sid, st in after.items():
+        grew_by = grown(st["kernel_launches"], before[sid]["kernel_launches"])
+        per_shard[sid] = dict(grew_by, throttles=st["objects"]["throttles"],
+                              clusterthrottles=st["objects"]["clusterthrottles"],
+                              pods=st["objects"]["pods"], device=st["device"])
+        check(st["device"].startswith("cuda"), f"shard {sid} runs on {st['device']}")
+        if st["objects"]["throttles"]:
+            check(grew_by["check_gather"] >= calls,
+                  f"shard {sid} launched check_gather {grew_by['check_gather']} times")
+            check(grew_by["pack_gather_rows"] == grew_by["check_gather"],
+                  f"shard {sid}'s check_gather launches and packs differ")
+        if st["objects"]["clusterthrottles"]:
+            check(grew_by["check_dense"] >= calls,
+                  f"shard {sid} launched check_dense {grew_by['check_dense']} times")
+    return per_shard
+
+
+def drive_shards(verdicts: dict, single: dict) -> dict:
+    """The ``[shards]`` phase: an ``AdmissionFront`` in this process over a
+    ``ShardSupervisor``'s SHARDS worker processes on the card, serving the
+    main path's cluster (loaded through the front's store). Every batch
+    verdict, 200 single-pod answers and a two-phase reserve are held
+    against the in-process plugin's; each worker's stats show its device
+    and its kernels' launches; one worker is SIGKILLed, restarted on the
+    card and resynced, and every verdict must come back."""
+    import signal
+
+    from kube_throttler_tpu_torch.api.serialization import object_from_dict
+    from kube_throttler_tpu_torch.sharding.front import AdmissionFront
+    from kube_throttler_tpu_torch.sharding.supervisor import ShardSupervisor
+
+    SHARDS_ROOT.mkdir(parents=True, exist_ok=True)
+    log = SHARDS_ROOT / "workers.log"
+    own = len(compute_apps())
+    env = {**os.environ, "KT_VERDICT_CACHE": "0", "KT_SHARD_QUIET": "1",
+           "PYTHONPATH": str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    front = AdmissionFront(SHARDS)
+    sup = ShardSupervisor(front, device="cuda", env=env)
+    out = {}
+    try:
+        with stderr_to(log):
+            t0 = time.perf_counter()
+            sup.start(ready_timeout=SHARDS_DEADLINE_S)
+            start_s = time.perf_counter() - t0
+            apps = compute_apps()
+            say("shards", step="start", workers=SHARDS, spawn_to_ready_s=f"{start_s:.3f}",
+                compute_apps=len(apps), before=own, nvidia_smi=json.dumps(apps))
+            check(len(apps) == own + SHARDS,
+                  f"{len(apps)} CUDA contexts on the card, {own} before {SHARDS} workers")
+
+            t0 = time.perf_counter()
+            load_cluster(front.store, cluster_objects(N_PODS, N_THROTTLES, GROUPS, N_CLUSTER, SEED))
+            routed_s = time.perf_counter() - t0
+            check(front.drain(timeout=SHARDS_DEADLINE_S), "the shards did not drain the cluster")
+            load_s = time.perf_counter() - t0
+            before = shard_stats(front)
+            say("shards", step="load", objects=len(front.store.list_pods())
+                + len(front.store.list_throttles()) + len(front.store.list_cluster_throttles()) + 1,
+                routed_s=f"{routed_s:.3f}", load_and_drain_s=f"{load_s:.3f}",
+                per_shard=json.dumps({sid: st["objects"] for sid, st in before.items()}))
+
+            per_call = []
+            for i in range(SHARDS_BATCH_CALLS):
+                t0 = time.perf_counter()
+                got = front.pre_filter_batch()
+                per_call.append((time.perf_counter() - t0) * 1e3)
+                bad = verdicts_differ(got, verdicts)
+                say("shards", step="pre_filter_batch", call=i, ms=f"{per_call[-1]:.3f}",
+                    verdicts=len(got["schedulable"]), errors=len(got["errors"]), differ=bad)
+                check(bad == 0, f"{bad} of the fleet's batch verdicts differ from the in-process ones")
+            after = shard_stats(front)
+            launches = check_shard_launches(before, after, SHARDS_BATCH_CALLS)
+            say("shards", step="launches", calls=SHARDS_BATCH_CALLS,
+                per_shard=json.dumps(launches, sort_keys=True))
+            # where a scattered call's time goes: each shard's RPC alone (its
+            # batch, the pickled answer over the socket), one at a time
+            alone, answer_bytes = {}, {}
+            for sid in range(SHARDS):
+                t0 = time.perf_counter()
+                got = front.shards[sid].request(
+                    "pre_filter_batch", None, timeout=front.deadline_for("pre_filter_batch"))
+                alone[sid] = round((time.perf_counter() - t0) * 1e3, 3)
+                answer_bytes[sid] = len(pickle.dumps(got, protocol=pickle.HIGHEST_PROTOCOL))
+            # and the front's own listing of every stored pod, which its
+            # merge walks to fill in the pods no shard holds
+            t0 = time.perf_counter()
+            listed = len(front.store.list_pods())
+            list_ms = (time.perf_counter() - t0) * 1e3
+            say("shards", step="split", shard_rpc_alone_ms=json.dumps(alone),
+                answer_bytes=json.dumps(answer_bytes), front_list_pods_ms=f"{list_ms:.3f}",
+                listed=listed, scattered_ms=json.dumps([round(x, 3) for x in per_call]))
+
+            # single-pod answers and a two-phase reserve, against the in-process ones
+            exact = differ = 0
+            for k in single["keys"]:
+                got = status_json(front.pre_filter(front.store.get_pod(*k.split("/", 1))))
+                exact += got == single["answers"][k]
+                differ += normalized(got) != normalized(single["answers"][k])
+            fill, probe = (object_from_dict(d) for d in fill_pods())
+            probe_before = status_json(front.pre_filter(probe))
+            reserved = status_json(front.reserve(fill))
+            probe_after = status_json(front.pre_filter(probe))
+            bad_reserved = verdicts_differ(front.pre_filter_batch(), single["verdicts_reserved"])
+            front.unreserve(fill)
+            probe_restored = status_json(front.pre_filter(probe))
+            aborts = front.stats()["two_phase_aborts"]
+            say("shards", step="single-pod", pods=len(single["keys"]), exact=exact, differ=differ,
+                reserve=reserved["code"], probe_before=probe_before["code"],
+                probe_after=probe_after["code"], reserved_batch_differ=bad_reserved,
+                probe_restored=probe_restored["code"], two_phase_aborts=aborts)
+            check(differ == 0, f"{differ} single-pod answers differ from the in-process ones")
+            check(normalized(probe_before) == normalized(single["before"])
+                  and reserved == single["reserved"]
+                  and normalized(probe_after) == normalized(single["after"]),
+                  f"the fill pod's reserve {reserved}, the probe {probe_before} / {probe_after}")
+            check(bad_reserved == 0,
+                  f"{bad_reserved} batch verdicts with the fill pod reserved differ")
+            check(probe_restored == probe_before and aborts == 0,
+                  f"unreserve left the probe at {probe_restored}; {aborts} aborts")
+
+            # a worker SIGKILLed: restarted on the card, resynced, converged
+            victim = front.owner_of("Throttle", f"default/t{FILL_GROUP}")
+            killed = sup.shard_proc(victim)
+            t0 = time.perf_counter()
+            os.kill(killed.pid, signal.SIGKILL)
+            while True:
+                fresh = sup.shard_proc(victim)
+                if (sup.restart_counts()[victim] >= 1 and fresh is not None
+                        and fresh is not killed and front._shards_health()[0] == "ok"):
+                    break
+                check(time.perf_counter() - t0 < SHARDS_DEADLINE_S,
+                      f"shard {victim} did not come back after its SIGKILL")
+                time.sleep(0.1)
+            restarted_s = time.perf_counter() - t0
+            check(front.drain(timeout=SHARDS_DEADLINE_S), "the fleet did not drain after the restart")
+            polls = 0
+            while True:
+                polls += 1
+                bad = verdicts_differ(front.pre_filter_batch(), verdicts)
+                if bad == 0:
+                    break
+                check(time.perf_counter() - t0 < SHARDS_DEADLINE_S,
+                      f"{bad} verdicts still differ after shard {victim}'s restart")
+                time.sleep(1.0)
+            converged_s = time.perf_counter() - t0
+            # one more call on the converged fleet: every worker, the
+            # restarted one included, launches its kernels for it
+            mid = shard_stats(front)
+            bad = verdicts_differ(front.pre_filter_batch(), verdicts)
+            revived = check_shard_launches(mid, shard_stats(front), 1)
+            apps = compute_apps()
+            restarts = sup.restart_counts()
+            say("shards", step="sigkill", shard=victim, restarted_s=f"{restarted_s:.3f}",
+                kill_to_convergence_s=f"{converged_s:.3f}", batch_polls=polls, differ=bad,
+                compute_apps=len(apps), restarts=json.dumps(restarts),
+                launches=json.dumps(revived[victim], sort_keys=True))
+            check(bad == 0, f"{bad} verdicts differ on the converged fleet")
+            check(len(apps) == own + SHARDS, f"{len(apps)} CUDA contexts after the restart")
+            check(restarts == {sid: int(sid == victim) for sid in range(SHARDS)},
+                  f"unexpected worker restarts {restarts}")
+            out = dict(start_s=start_s, load_s=load_s, per_call_ms=per_call, launches=launches,
+                       converged_s=converged_s)
+    except BaseException:
+        print("[shards] worker log tail:\n" + "".join(
+            log.read_text(errors="replace").splitlines(keepends=True)[-40:]), flush=True)
+        raise
+    finally:
+        sup.stop()
+        front.stop()
+    left = len(compute_apps())
+    say("shards", step="stop", compute_apps=left)
+    check(left == own, f"{left - own} CUDA contexts outlived the fleet's stop")
+    return out
+
+
+def drive_shards_cli() -> dict:
+    """The ``[shards]`` phase's CLI leg: ``kube-throttler-gpu serve --shards
+    SHARDS`` as a child process on the card, a smaller cluster posted to
+    ``/v1/objects``; its HTTP batch must equal the in-process plugin's on
+    the same objects, and SIGTERM must stop it and every worker."""
+    from kube_throttler_tpu_torch.api.serialization import object_to_dict
+    from kube_throttler_tpu_torch.engine.store import Store
+    from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
+
+    objects = cluster_objects(*CLI_SHARDS_CLUSTER, SEED + 9)
+    store = Store()
+    plugin = KubeThrottler(
+        decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
+        store, use_device=True, device="cuda",
+    )
+    try:
+        load_cluster(store, objects)
+        plugin.run_pending_once()
+        want = plugin.pre_filter_batch()
+    finally:
+        plugin.stop()
+    namespace, throttles, cluster_throttles, pods = objects
+    docs = [object_to_dict(o) for o in [namespace, *throttles, *cluster_throttles, *pods]]
+
+    own = len(compute_apps())
+    daemon = Daemon(["--shards", str(SHARDS), "--device", "cuda"], SHARDS_ROOT / "cli.log",
+                    SHARDS_DEADLINE_S, env={"KT_VERDICT_CACHE": "0"})
+    try:
+        apps = compute_apps()
+        workers = workers_of(daemon.proc.pid)
+        say("shards", step="cli-start", spawn_to_ready_s=f"{daemon.ready_s:.3f}",
+            serving=repr(daemon.line(r"serving on")), workers=len(workers),
+            compute_apps=len(apps), before=own)
+        check(daemon.line(rf"shards={SHARDS}, device=cuda"), "the sharded daemon is not on the card")
+        check(len(workers) == SHARDS, f"the sharded daemon runs {len(workers)} workers")
+        check(len(apps) == own + SHARDS,
+              f"{len(apps)} CUDA contexts with the sharded daemon up, {own} before it")
+        t0 = time.perf_counter()
+        for doc in docs:
+            code, body = daemon.post("/v1/objects", doc)
+            check(code == 200, f"/v1/objects answered {code}: {body}")
+        posted_s = time.perf_counter() - t0
+        # settled: the statuses the shards push back stand still
+        last, stable = None, 0
+        while stable < 3:
+            check(time.perf_counter() - t0 < SHARDS_DEADLINE_S, "the sharded daemon never settled")
+            cur = [daemon.get(path)[1] for path in ("/v1/throttles", "/v1/clusterthrottles")]
+            for items in cur:
+                for item in items:
+                    item["status"]["calculatedThreshold"].pop("calculatedAt", None)
+            stable = stable + 1 if cur == last else 0
+            last = cur
+            time.sleep(0.5)
+        t1 = time.perf_counter()
+        code, got = daemon.post("/v1/prefilter-batch")
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        check(code == 200, f"/v1/prefilter-batch answered {code}")
+        bad = verdicts_differ(got, want["schedulable"])
+        say("shards", step="cli-batch", objects=len(docs), posted_s=f"{posted_s:.3f}",
+            settled_s=f"{t1 - t0:.3f}", batch_ms=f"{batch_ms:.3f}",
+            verdicts=len(got["schedulable"]), schedulable=sum(got["schedulable"].values()),
+            differ=bad)
+        check(bad == 0, f"{bad} HTTP batch verdicts of the sharded daemon differ")
+        check(0 < sum(got["schedulable"].values()) < len(pods), "the CLI cluster is one-sided")
+        stop_s = daemon.stop()
+    finally:
+        daemon.kill()
+    left = [pid for pid in workers if alive(pid)]
+    apps_after = len(compute_apps())
+    say("shards", step="cli-sigterm", exit_code=0, shutdown_s=f"{stop_s:.3f}",
+        workers_left=len(left), compute_apps=apps_after)
+    check(not left and apps_after == own, f"workers {left} outlived the daemon's SIGTERM")
+    return dict(ready_s=daemon.ready_s, batch_ms=batch_ms)
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -2177,6 +2558,22 @@ def run() -> int:
     finally:
         shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
 
+    # -- the sharded fleet on the card, in process and through the CLI
+    shutil.rmtree(SHARDS_ROOT, ignore_errors=True)
+    shards = drive_shards(verdicts, single)
+    shards_cli = drive_shards_cli()
+    shutil.rmtree(SHARDS_ROOT, ignore_errors=True)
+    shard_launches = {
+        name: sum(per[name] for per in shards["launches"].values())
+        for name in ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
+    }
+    say("shards", step="summary", spawn_to_ready_s=f"{shards['start_s']:.3f}",
+        load_and_drain_s=f"{shards['load_s']:.3f}",
+        batch_ms=json.dumps([round(x, 3) for x in shards["per_call_ms"]]),
+        kill_to_convergence_s=f"{shards['converged_s']:.3f}",
+        cli_spawn_to_ready_s=f"{shards_cli['ready_s']:.3f}",
+        cli_batch_ms=f"{shards_cli['batch_ms']:.3f}", launches=json.dumps(shard_launches))
+
     kernels = {"kernels": [{
         "name": "check_dense",
         "route": "cuda",
@@ -2186,6 +2583,7 @@ def run() -> int:
         "tick_launches": tick["launches"],
         "dense_tick_launches": tick["dense_launches"],
         "daemon_launches": daemon["launches"]["check_dense"],
+        "shards_launches": shard_launches["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -2209,6 +2607,7 @@ def run() -> int:
         "replaces": "kube_throttler_tpu/ops/victim_select.py:44",
         "launches": preempt["launches"],
         "daemon_launches": daemon["scheduler_launches"]["victim_select"],
+        "shards_launches": shard_launches["victim_select"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -2229,6 +2628,8 @@ def run() -> int:
         "launches": res["gather_launches"],
         "tick_launches": tick["gather_launches"],
         "daemon_launches": daemon["launches"]["check_gather"],
+        "shards_launches": shard_launches["check_gather"],
+        "shards_pack_launches": shard_launches["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,

@@ -16,7 +16,8 @@ The device is the caller's explicit choice (``utils/platform.py``):
 ``--device cuda`` (the default) serves from the card and exits non-zero
 when there is none; ``--device cpu`` runs the device data plane on the
 CPU; ``--no-device`` answers from the host oracle alone and needs no
-device at all. ``--shards`` is not ported yet (ROADMAP queue 1 item 11c).
+device at all. ``--shards N`` runs the admission front here and N shard
+worker processes, each on the same ``--device``.
 
 ``--config`` accepts a KubeSchedulerConfiguration-style YAML: the args are
 read from ``profiles[*].pluginConfig[name=kube-throttler].args`` (the same
@@ -101,6 +102,133 @@ def _args_from_config(cfg: Dict[str, Any], path: str) -> Dict[str, Any]:
     # fine — plugin args may come from CLI flags; decode_plugin_args
     # validates the merged result
     return {}
+
+
+def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
+    """``serve --shards N``: the scatter-gather admission front in THIS
+    process, N shard worker processes under a supervisor. The front's
+    store is the merged read view the HTTP surface serves; every local
+    mutation routes to the owning shards; shard status writes stream
+    back (sharding/front.py).
+
+    The front never creates a CUDA context: on ``--device cuda`` it builds
+    every kernel library first (``nvcc`` alone), so the N workers find
+    them built; each worker then loads its kernels, takes its own context
+    on the card and prewarms before it answers a ping. A build failure
+    exits non-zero before any worker is spawned."""
+    from .metrics import Registry
+    from .sharding.front import AdmissionFront
+    from .sharding.supervisor import ShardSupervisor
+
+    elector = None
+    if leader_elect:
+        from .utils.leaderelect import FileLeaseElector, default_lease_path
+
+        lock_path = args.lock_file or default_lease_path(plugin_args.name)
+        elector = FileLeaseElector(lock_path)
+        print(f"leader election on {lock_path}: waiting for lease...", flush=True)
+        if not elector.acquire(stop):
+            return 0
+
+    # mixed fleets: --shard-connect SID=HOST:PORT shards are dialed, not
+    # spawned (somebody else runs those workers — another host, a pod)
+    remote_workers = {}
+    for spec in getattr(args, "shard_connect", None) or []:
+        sid_s, _, hostport = spec.partition("=")
+        try:
+            sid = int(sid_s)
+        except ValueError:
+            raise SystemExit(f"--shard-connect: bad shard id in {spec!r}")
+        if not (0 <= sid < args.shards) or ":" not in hostport:
+            raise SystemExit(
+                f"--shard-connect: want SID=HOST:PORT with 0 <= SID < "
+                f"--shards, got {spec!r}"
+            )
+        remote_workers[sid] = hostport
+    transport = getattr(args, "shard_transport", "socketpair")
+    if remote_workers and transport != "tcp":
+        transport = "tcp"  # remote workers imply the fleet transport
+    auth_key = None
+    if transport == "tcp":
+        from .sharding.ipc import load_auth_key
+
+        auth_key = load_auth_key(getattr(args, "shard_auth_key_file", ""))
+        if auth_key is None and remote_workers:
+            # pickled frames to a peer we cannot authenticate: the
+            # workers will refuse a keyless non-loopback --listen, but
+            # say it HERE too so a loopback-tunnel setup is a choice,
+            # not an accident
+            print(
+                "WARNING: --shard-connect without a frame-auth key "
+                "(--shard-auth-key-file / $KT_SHARD_AUTH_KEY): shard "
+                "frames are unauthenticated pickle — only safe if every "
+                "hop is loopback or locked down out-of-band",
+                flush=True,
+            )
+
+    if device is not None and device.type == "cuda":
+        from .kernels import build_all
+
+        try:
+            build_all()
+        except RuntimeError as e:
+            print(f"kernel build failed: {e}", file=sys.stderr, flush=True)
+            return 1
+
+    metrics_registry = Registry()
+    front = AdmissionFront(
+        args.shards,
+        metrics_registry=metrics_registry,
+        name=plugin_args.name,
+        rpc_deadline=getattr(args, "shard_rpc_deadline", 30.0),
+    )
+    supervisor = ShardSupervisor(
+        front,
+        name=plugin_args.name,
+        target_scheduler=plugin_args.target_scheduler_name,
+        use_device=not args.no_device,
+        data_dir=args.data_dir or None,
+        ingest_batch=getattr(args, "ingest_batch", "adaptive"),
+        transport=transport,
+        remote_workers=remote_workers,
+        auth_key=auth_key,
+        device=args.device,
+    )
+    print(
+        f"spawning {args.shards - len(remote_workers)} shard workers "
+        f"({transport}; {len(remote_workers)} remote)...",
+        flush=True,
+    )
+    supervisor.start()
+    if front.store.get_namespace("default") is None:
+        front.store.create_namespace(Namespace("default"))
+    # front-side interned-verdict cache observability (the scatter tier
+    # keeps its own cache keyed on front epochs)
+    from .metrics import register_build_metrics, register_verdict_cache_metrics
+
+    register_verdict_cache_metrics(metrics_registry, front.verdict_cache)
+    # build/version exposition (rolling upgrades): own build_info row plus
+    # one row per shard with its NEGOTIATED proto/caps, so a fleet scrape
+    # shows exactly which pairings are running during a roll
+    register_build_metrics(metrics_registry, role="front", front=front)
+    server = ThrottlerHTTPServer(front, host=args.host, port=args.port)
+    server.start()
+    print(
+        f"kube-throttler-gpu serving on {args.host}:{server.port} "
+        f"(throttler={plugin_args.name}, "
+        f"scheduler={plugin_args.target_scheduler_name}, "
+        f"shards={args.shards}, device={device.type if device is not None else 'off'})",
+        flush=True,
+    )
+    stop.wait()
+    server.mark_draining()
+    front.drain(timeout=10.0)
+    server.stop()
+    supervisor.stop()
+    front.stop()
+    if elector is not None:
+        elector.release()
+    return 0
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -197,8 +325,48 @@ def main(argv: Optional[list] = None) -> int:
         "--shards",
         type=int,
         default=0,
-        help="shared-nothing multiprocess sharding: not ported yet "
-        "(ROADMAP queue 1 item 11c); any value above 0 is a usage error",
+        help="shared-nothing multiprocess sharding: run N worker processes "
+        "each owning a consistent-hash slice of the Throttle/ClusterThrottle "
+        "keyspace (full vertical per shard: store+index+journal+device "
+        "planes+controllers), behind a scatter-gather admission front on "
+        "this process. Every worker runs its data plane on --device (N "
+        "CUDA contexts on one card). 0 = single-process engine. "
+        "Standalone mode only",
+    )
+    serve.add_argument(
+        "--shard-transport",
+        choices=("socketpair", "tcp"),
+        default="socketpair",
+        help="how the front reaches its shard workers: 'socketpair' "
+        "(inherited fd, children on this host) or 'tcp' (the cross-host "
+        "fleet transport: per-shard connection pools, reconnect backoff, "
+        "epoch-fenced frames — docs/robustness.md 'Cross-host fleet')",
+    )
+    serve.add_argument(
+        "--shard-connect",
+        action="append",
+        metavar="SID=HOST:PORT",
+        help="mixed fleets: do not spawn shard SID locally, dial a worker "
+        "somebody else runs (`python -m kube_throttler_tpu_torch.sharding."
+        "worker --listen ...`). Repeatable; implies --shard-transport tcp",
+    )
+    serve.add_argument(
+        "--shard-rpc-deadline",
+        type=_positive_seconds(allow_inf=False),
+        default=30.0,
+        help="per-op deadline budget (seconds) for front→shard RPCs; a "
+        "scatter call that outruns it degrades fail-safe instead of "
+        "blocking admission (the bulk triage op keeps a 120s floor)",
+    )
+    serve.add_argument(
+        "--shard-auth-key-file",
+        default="",
+        help="file holding the fleet's frame-auth pre-shared key (a "
+        "mounted Secret); falls back to $KT_SHARD_AUTH_KEY. Every TCP "
+        "shard frame is HMAC-authenticated with it before the pickle "
+        "payload is deserialized — REQUIRED for fleets that leave "
+        "loopback; the workers refuse a keyless non-loopback --listen "
+        "(docs/robustness.md 'Transport security')",
     )
     serve.add_argument("--no-device", action="store_true", help="host-oracle decisions only")
     serve.add_argument(
@@ -400,12 +568,25 @@ def main(argv: Optional[list] = None) -> int:
         parser.error("--lease-backend http requires --kubeconfig (the "
                      "Lease object lives on that apiserver)")
 
-    # multiprocess sharding (usage error before heavy startup)
+    # multiprocess sharding flag surface (usage errors before heavy startup)
     if args.shards > 0:
-        parser.error(
-            "--shards is not ported to the GPU daemon yet (ROADMAP queue 1 "
-            "item 11c); run without it for the single-process engine"
-        )
+        if plugin_args.kubeconfig:
+            parser.error(
+                "--shards runs the standalone sharded store; in --kubeconfig "
+                "mode the apiserver is the state of record — run one replica "
+                "per host with --leader-elect instead"
+            )
+        if args.ha_role != "none":
+            parser.error(
+                "--shards and --ha-role are exclusive: each shard worker "
+                "runs its own fenced leadership (per-shard epoch in its "
+                "data dir); front-level HA is the supervisor's restart path"
+            )
+        if args.nodes > 0:
+            parser.error(
+                "--nodes (embedded scheduler) is not supported with --shards "
+                "yet: run an external scheduler against /v1/prefilter"
+            )
 
     # the device, resolved before any heavy startup: without a CUDA device
     # '--device cuda' exits here rather than serving from the CPU
@@ -418,6 +599,9 @@ def main(argv: Optional[list] = None) -> int:
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
+
+    if args.shards > 0:
+        return _serve_sharded(args, plugin_args, leader_elect, stop, device)
 
     rest_config = None
     if plugin_args.kubeconfig:

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -78,6 +79,17 @@ def build(name: str) -> Path:
         if tmp is not None and os.path.exists(tmp):
             os.unlink(tmp)
     return target
+
+
+def build_all() -> None:
+    """Compile every ``csrc/*.cu`` at once, one ``nvcc`` each, without
+    loading any (so no CUDA context is created): a process that spawns
+    workers builds here first, and the workers' loads find the libraries
+    built. Raises when any build fails."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(build, name) for name in names]:
+            fut.result()
 
 
 def load(name: str) -> ctypes.CDLL:

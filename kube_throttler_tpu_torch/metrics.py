@@ -634,11 +634,23 @@ def register_breaker_metrics(registry: Registry, device_manager) -> GaugeVec:
     return gauge
 
 
-def register_kernel_metrics(registry: Registry) -> GaugeVec:
+def kernel_launch_counts() -> Dict[str, int]:
     """Launches of each hand-written CUDA kernel in this process since it
-    started, read at scrape time from the wrappers' counters (which count
-    kernel launches only, never the plain versions run on CPU tensors): an
-    operator's proof that served calls went through the card's kernels."""
+    started, from the wrappers' counters (which count kernel launches
+    only, never the plain versions run on CPU tensors)."""
+    from .ops import check_dense, check_gather, victim_select
+
+    return {
+        "check_dense": check_dense.launches,
+        "check_gather": check_gather.launches,
+        "pack_gather_rows": check_gather.pack_launches,
+        "victim_select": victim_select.launches,
+    }
+
+
+def register_kernel_metrics(registry: Registry) -> GaugeVec:
+    """:func:`kernel_launch_counts`, read at scrape time: an operator's
+    proof that served calls went through the card's kernels."""
     gauge = registry.gauge_vec(
         "kube_throttler_kernel_launches",
         "launches of each hand-written CUDA kernel in this process",
@@ -646,14 +658,7 @@ def register_kernel_metrics(registry: Registry) -> GaugeVec:
     )
 
     def refresh() -> None:
-        from .ops import check_dense, check_gather, victim_select
-
-        for label, n in (
-            ("check_dense", check_dense.launches),
-            ("check_gather", check_gather.launches),
-            ("pack_gather_rows", check_gather.pack_launches),
-            ("victim_select", victim_select.launches),
-        ):
+        for label, n in kernel_launch_counts().items():
             gauge.set_key((label,), float(n))
 
     registry.register_pre_expose(refresh)

@@ -34,8 +34,9 @@ unset.
 
 Reports collect in a process-global list; the conftest sessionfinish
 gate fails the suite on any unwaived report. Vetted benign races go in
-``kube_throttler_tpu/analysis/race_allow.txt`` keyed
-``module.Class.attr`` with a **mandatory justification** (the
+``kube_throttler_tpu_torch/analysis_waivers/race_allow.txt`` keyed
+``module.Class.attr`` (the module path below the package, as the JAX
+package's detector keys its own) with a **mandatory justification** (the
 convention: an entry with no justification, or naming an attribute
 that no longer exists in any GUARDED_BY table, is itself an error —
 tests/test_racedetect.py enforces both statically, so waiver rot fails
@@ -140,6 +141,8 @@ class RaceReport:
 # ------------------------------------------------------------------ globals
 
 _mu = threading.Lock()  # plain on purpose: never enters the order graph
+# the prefix a guarded class's module loses in its waiver key
+_PACKAGE = __name__.split(".", 1)[0] + "."
 _reports: List[RaceReport] = []
 _reported_quals: set = set()
 _fired_waivers: set = set()
@@ -150,7 +153,7 @@ _tls = threading.local()
 def default_allow_path() -> str:
     return os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "analysis",
+        "analysis_waivers",
         "race_allow.txt",
     )
 
@@ -577,7 +580,7 @@ def install_descriptors(cls, attrs) -> None:
     slots = getattr(cls, "__slots__", None)
     if slots is not None and "__dict__" not in slots:
         return
-    qual_base = f"{cls.__module__.removeprefix('kube_throttler_tpu.')}.{cls.__qualname__}"
+    qual_base = f"{cls.__module__.removeprefix(_PACKAGE)}.{cls.__qualname__}"
     for attr in attrs:
         existing = getattr(cls, attr, _MISSING)
         if isinstance(existing, _TrackedAttr):

@@ -62,7 +62,7 @@ def register(name: str, fn) -> object:
 def register_all(namespace: Dict[str, object], modname: str) -> int:
     """Register every jit entry in a module's globals (call at module
     bottom: ``register_all(globals(), __name__)``). Returns the count."""
-    short = modname.rsplit("kube_throttler_tpu.", 1)[-1]
+    short = modname.rsplit(__name__.split(".", 1)[0] + ".", 1)[-1]
     n = 0
     for attr, obj in list(namespace.items()):
         if attr.startswith("_"):

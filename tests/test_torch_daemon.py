@@ -12,8 +12,10 @@ must be equal. Both then restart from their ``--data-dir`` and must again
 answer alike, with equal recovery reports; and each recovers the data dir
 that the other package wrote to the same answers.
 
-Also here: the CLI's guards (``--device cuda`` without a card,
-``--shards``) and ``version``.
+Also here: ``serve --shards 2 --device cpu`` (a front and two worker
+processes) against the reference's ``serve --shards 2``; the CLI's guards
+(``--device cuda`` without a card, with and without ``--shards``, and
+``--shards`` with ``--nodes``) and ``version``.
 """
 
 import json
@@ -223,10 +225,86 @@ def test_serve_without_a_card_exits_before_serving(monkeypatch, capsys):
 
 
 def test_shards_is_a_usage_error(capsys):
+    """``--shards`` runs the standalone sharded store; what it cannot be
+    combined with is a usage error, as in the reference."""
     with pytest.raises(SystemExit) as e:
-        tcli.main(PORT_SERVE + ["--shards", "2"])
+        tcli.main(PORT_SERVE + ["--shards", "2", "--nodes", "1"])
     assert e.value.code == 2
-    assert "ROADMAP queue 1 item 11c" in capsys.readouterr().err
+    assert "--nodes (embedded scheduler) is not supported with --shards" in (
+        capsys.readouterr().err)
+
+
+def _front(daemons, daemon):
+    return daemons.servers[daemon[0]].plugin
+
+
+def _sharded_answers(daemons, daemon, docs):
+    """POST the cluster to a sharded daemon, wait until its shards are
+    idle and the pushed statuses stand still, then read every pod's
+    PreFilter and the batch."""
+    port = daemon[1]
+    for doc in docs:
+        assert _call(port, "POST", "/v1/objects", doc)[0] == 200
+    assert _front(daemons, daemon).drain(timeout=60.0)
+    _settle(port)
+    out = [("prefilter", key, _call(port, "POST", "/v1/prefilter", {"podKey": key}))
+           for key in pod_keys(docs)]
+    out.append(("batch", _call(port, "POST", "/v1/prefilter-batch", {})))
+    return out
+
+
+def test_sharded_port_daemon_answers_as_the_reference(monkeypatch):
+    """``serve --shards 2 --device cpu``: an admission front in this process
+    and two worker processes, each running its device data plane on the
+    CPU, answer every PreFilter and the batch as the JAX package's
+    ``serve --shards 2`` does; SIGTERM stops the front and its workers."""
+    monkeypatch.setenv("KT_VERDICT_CACHE", "0")
+    daemons = _Daemons(monkeypatch)
+    docs = manifests(seed=0)
+    ref = daemons.start(jcli, SERVE + ["--shards", "2"])
+    port = daemons.start(tcli, PORT_SERVE + ["--shards", "2"])
+    procs = []
+    try:
+        _, ready = _call(port[1], "GET", "/readyz")
+        assert ready["state"] == "ok"
+        assert ready["components"]["shards"] == {
+            "state": "ok", "shard-0": "ok", "shard-1": "ok"}
+        want = _sharded_answers(daemons, ref, docs)
+        got = _sharded_answers(daemons, port, docs)
+        assert got == want
+        batch = got[-1][1][1]["schedulable"]
+        assert len(batch) == len(pod_keys(docs))
+        assert set(batch.values()) == {True, False}
+        front = _front(daemons, port)
+        for sid, stats in front.stats()["shards"].items():
+            assert stats["device"] == "cpu", sid
+            assert stats["objects"]["throttles"] > 0, sid
+        procs = [front.supervisor_ref.shard_proc(sid) for sid in range(2)]
+        assert all(p is not None and p.poll() is None for p in procs)
+    finally:
+        daemons.stop(port)
+        daemons.stop(ref)
+    assert all(p.poll() is not None for p in procs), "a worker outlived SIGTERM"
+
+
+def test_sharded_serve_without_a_card_spawns_no_worker(monkeypatch, capsys):
+    """``serve --shards 2`` on ``--device cuda`` without a card exits
+    non-zero before any worker is spawned or any kernel is built."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from kube_throttler_tpu_torch import kernels
+    from kube_throttler_tpu_torch.sharding.supervisor import ShardSupervisor
+
+    def never(*args, **kwargs):
+        raise AssertionError("nothing may be spawned or built without a device")
+
+    monkeypatch.setattr(signal, "signal", lambda *a, **k: None)
+    monkeypatch.setattr(ShardSupervisor, "__init__", never)
+    monkeypatch.setattr(kernels, "build", never)
+    monkeypatch.setattr(tcli, "ThrottlerHTTPServer", never)
+    assert tcli.main(SERVE + ["--shards", "2", "--device", "cuda"]) == 1
+    err = capsys.readouterr().err
+    assert "device unavailable" in err and "CUDA is not available" in err
 
 
 def test_version(capsys):
