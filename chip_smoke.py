@@ -53,7 +53,18 @@ worker must report the card and its ``check_gather`` and ``check_dense``
 launches, and a SIGKILLed worker must come back on the card with every
 verdict; then ``serve --shards 4`` as a child process must answer an HTTP
 batch over a smaller cluster as the in-process plugin does and leave no
-worker after SIGTERM. One line per phase; then one
+worker after SIGTERM. Last, the scenario engine's storms on the card, each
+in a child interpreter of this script (``--scenario-child``), at the
+corpus's own topologies and seed 0: ``relist_storm`` and ``bad_day``
+through the remote-mode stack without the verdict cache (every verdict of
+the serving plugin's batch equal to an oracle plugin's, and 200 host spot
+checks; the serving plugin's batch launches ``check_gather``), the
+preemption storm (its correctness gates; its cycles launch
+``victim_select``) and the sharded bad day on 4 workers (verdicts per pod,
+the killed worker's recovery; after the storm this script reads each
+worker's launches and sends the fleet one batch, held against a host
+oracle, that launches ``check_gather`` on the workers); every gate is
+printed with its bound, and the latency gates are recorded, not enforced. One line per phase; then one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -66,7 +77,10 @@ report per source — ``cuobjdump`` for the instruction counts, and the
 four daemons of the daemon phase, one at a time, each stopped by SIGTERM
 or killed on failure; the shards phase's 4 workers (5 with the SIGKILLed
 one's replacement), stopped with their supervisor, and its sharded daemon
-with its 4 workers, stopped by SIGTERM).
+with its 4 workers, stopped by SIGTERM; the scenarios phase's four child
+interpreters, one at a time, each in a session of its own that is killed
+whole if it outlives its deadline, with the sharded run's workers and the
+bad day's failover children under it).
 """
 
 from __future__ import annotations
@@ -145,7 +159,7 @@ COALESCE_PODS = 256
 # roomy Throttles and ClusterThrottle the fill pod's reservation fills
 DAEMON_DEADLINE_S = 600.0
 DAEMON_ROOT = HERE / "build" / "daemon-smoke"
-DAEMON_BATCH_CALLS = 3
+DAEMON_BATCH_CALLS = 1
 DAEMON_SINGLE_PODS = 200
 FILL_GROUP = 9
 # the shards phase: worker processes of the sharded fleet, all on the one
@@ -153,10 +167,32 @@ FILL_GROUP = 9
 # and the CLI leg's smaller cluster (pods, Throttles, label groups,
 # ClusterThrottles), posted over HTTP
 SHARDS = 4
-SHARDS_BATCH_CALLS = 3
+SHARDS_BATCH_CALLS = 1
 SHARDS_DEADLINE_S = 600.0
 SHARDS_ROOT = HERE / "build" / "shards-smoke"
 CLI_SHARDS_CLUSTER = (1_000, 100, 50, 2)
+# the scenarios phase: the scenario engine's storms at the corpus's own
+# topologies and seed 0, each run in a fresh interpreter (a child of this
+# script), as the engine's CLI runs them: (run, runner). Every child runs
+# without the verdict cache (KT_VERDICT_CACHE=0), as the shards phase's
+# workers do: at corpus scale the cache's dedupe answers a batch on the
+# host, one check per pod fingerprint, and launches no kernel.
+SCENARIO_RUNS = (
+    ("relist_storm", "engine"),
+    ("bad_day", "engine"),
+    ("preempt_storm", "preemption"),
+    ("sharded_bad_day", "sharded"),
+)
+SCENARIO_SHARDS = 4
+SCENARIO_DEADLINE_S = 600.0
+SCENARIO_ROOT = HERE / "build" / "scenarios-smoke"
+SCENARIO_REPORT = "SCENARIO_REPORT "
+# the gates that decide the smoke (the verdicts and the storm's correctness);
+# every other gate (flip_p99, flip_p50, ingest_sustain, recovery, pace,
+# churn, failover) is printed with its bound and recorded, not enforced here
+PREEMPT_CORRECTNESS_GATES = ("admitted", "no_half_gangs", "victim_order", "oracle")
+# the launch counters every kernel wrapper keeps (metrics.kernel_launch_counts)
+KERNEL_COUNTERS = ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
 # kernel instantiations ptxas must report per source (check_gather: 8
 # checks and the pack)
 PTXAS_INSTANTIATIONS = {"check_dense": 12, "check_gather": 9, "victim_select": 9}
@@ -184,6 +220,20 @@ def check(cond: bool, what: str) -> None:
 def say(phase: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{phase}] {body}", flush=True)
+
+
+PHASE_MARKS: list = []
+
+
+def mark(phase: str) -> None:
+    """Note where a part of ``run`` starts; the ``[phases]`` line gives
+    each part's seconds, up to the next mark."""
+    PHASE_MARKS.append((phase, time.perf_counter()))
+
+
+def phase_seconds() -> dict:
+    ends = [t for _, t in PHASE_MARKS[1:]] + [time.perf_counter()]
+    return {name: round(end - t, 3) for (name, t), end in zip(PHASE_MARKS, ends)}
 
 
 # --------------------------------------------------------------- inputs
@@ -2303,6 +2353,287 @@ def drive_shards_cli() -> dict:
     return dict(ready_s=daemon.ready_s, batch_ms=batch_ms)
 
 
+# --------------------------------------------------------------- scenarios
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count in this process to 0."""
+    from kube_throttler_tpu_torch.ops import check_dense, check_gather, victim_select
+
+    check_dense.launches = check_gather.launches = check_gather.pack_launches = 0
+    victim_select.launches = 0
+
+
+def scenario_child(label: str, workdir: str) -> int:
+    """One run of the ``[scenarios]`` phase, in this fresh interpreter, on
+    the card: the port's runner with ``device="cuda"``, the launch counts
+    set to 0 just before it and read at its parts. Prints one line,
+    ``SCENARIO_REPORT {...}``: the gates, the wall seconds, the devices,
+    the kernels' launches and what the checks read.
+
+    Engine runs: every plugin batch is counted (its plugin, device and
+    launches), and the counts are read as the verdict sweep starts, so the
+    storm, the serving plugin's batch and the oracle's batch stand apart.
+    Preemption: the counts are read before its closing oracle sweep. The
+    sharded bad day: the workers' ``stats`` are read when the fleet is up,
+    and again when the runner stops it; before that stop this script sends
+    the fleet one batch and holds it against a host oracle."""
+    import torch
+
+    from kube_throttler_tpu_torch.metrics import kernel_launch_counts
+    from kube_throttler_tpu_torch.plugin import KubeThrottler
+    from kube_throttler_tpu_torch.scenarios import engine, preemption, sharded
+    from kube_throttler_tpu_torch.scenarios.corpus import get_scenario
+
+    runner = dict(SCENARIO_RUNS)[label]
+    out = {"run": label, "runner": runner, "card": torch.cuda.get_device_name(0)}
+    if runner == "engine":
+        serving = {}
+        batches = out["batches"] = []
+        batch = KubeThrottler.pre_filter_batch
+
+        def counted_batch(self, *args, **kwargs):
+            before = kernel_launch_counts()
+            try:
+                return batch(self, *args, **kwargs)
+            finally:
+                batches.append({
+                    "plugin": "serving" if self is serving.get("plugin") else "oracle",
+                    "device": str(self.device_manager.device),
+                    "launches": grown(kernel_launch_counts(), before)})
+
+        sweep = engine._Engine.verdict_sweep
+
+        def counted_sweep(self):
+            out["launches_before_sweep"] = kernel_launch_counts()
+            out["batches_before_sweep"] = len(batches)
+            serving["plugin"] = self.plugin
+            out["devices"] = {"engine": str(self.device),
+                              "serving": str(self.plugin.device_manager.device)}
+            return sweep(self)
+
+        KubeThrottler.pre_filter_batch = counted_batch
+        engine._Engine.verdict_sweep = counted_sweep
+    elif runner == "preemption":
+        # the storm's own launches, apart from its closing oracle sweep's
+        # (the kernel held against the sequential oracle)
+        oracle_sweep = preemption._oracle_sweep
+
+        def counted_oracle_sweep(*args, **kwargs):
+            out["launches_before_oracle_sweep"] = kernel_launch_counts()
+            return oracle_sweep(*args, **kwargs)
+
+        preemption._oracle_sweep = counted_oracle_sweep
+    else:
+        build = sharded._build_stack
+
+        def counted_build(*args, **kwargs):
+            front, supervisor = build(*args, **kwargs)
+            out["workers_at_start"] = front.stats()["shards"]
+            stop = supervisor.stop
+
+            def stop_after_fleet_batch():
+                try:
+                    out["workers_after_storm"] = front.stats()["shards"]
+                    out["fleet_batch"] = fleet_batch(front)
+                    out["workers"] = front.stats()["shards"]
+                except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                    out["fleet_error"] = repr(e)
+                finally:
+                    stop()
+
+            supervisor.stop = stop_after_fleet_batch
+            return front, supervisor
+
+        sharded._build_stack = counted_build
+    reset_launches()
+    t0 = time.perf_counter()
+    if runner == "engine":
+        report = engine.run_scenario(get_scenario(label), SEED, workdir, device="cuda")
+    elif runner == "preemption":
+        report = preemption.run_preemption_storm(SEED, device="cuda")
+    else:
+        report = sharded.run_sharded_bad_day(n_shards=SCENARIO_SHARDS, seed=SEED, device="cuda")
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = kernel_launch_counts()
+    out["gates"] = report["gates"]
+    if runner == "engine":
+        m = report["measurements"]
+        out["pass"] = report["all_pass"]
+        out["measurements"] = {k: m.get(k) for k in (
+            "flip_lag_p50_ms", "flip_lag_p99_ms", "flip_samples", "flip_crossings",
+            "lag_p99_ms", "events_per_sec", "pace_frac", "ops_applied", "restarts",
+            "recovery_s", "wrong_verdicts", "verdicts_checked", "spot_checked")}
+        for b in batches:
+            out["devices"][f"{b['plugin']}-batch"] = b["device"]
+    elif runner == "preemption":
+        out["pass"] = report["ok"]
+        out["measurements"] = {k: report.get(k) for k in (
+            "groups", "residents_per_group", "waves", "admitted_gangs", "expected_gangs",
+            "victims_total", "evicted_unique", "reevicted", "churn_frac")}
+        out["devices"] = {"plugin": report["device"]}
+    else:
+        out["pass"] = report["pass"]
+        out["measurements"] = {k: report.get(k) for k in (
+            "pace_hz", "host_cores", "undersubscribed", "events", "dropped")}
+        out["devices"] = {f"shard-{sid}": w.get("device")
+                          for sid, w in out.get("workers", {}).items()}
+    print(SCENARIO_REPORT + json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def fleet_batch(front) -> dict:
+    """One ``pre_filter_batch`` through the sharded fleet after the storm,
+    held against a host oracle plugin over the front's objects."""
+    import tools.harness_torch as H
+    from kube_throttler_tpu_torch.api.pod import Namespace
+    from kube_throttler_tpu_torch.engine.store import Store
+
+    store = Store()
+    store.create_namespace(Namespace("default"))
+    for thr in front.store.list_throttles():
+        store.create_throttle(thr)
+    for pod in front.store.list_pods():
+        store.create_pod(pod)
+    oracle = H.build_plugin(store)
+    try:
+        oracle.run_pending_once()
+        want = oracle.pre_filter_batch()["schedulable"]
+    finally:
+        oracle.stop()
+    t0 = time.perf_counter()
+    got = front.pre_filter_batch()
+    return {"ms": (time.perf_counter() - t0) * 1e3, "checked": len(want),
+            "differ": verdicts_differ(got, want)}
+
+
+def worker_launches(s: dict) -> dict:
+    """The sharded run's launches per worker, in the storm (from the fleet's
+    start to the end of the replay; a worker restarted in it counts from
+    its restart, its own prewarm included, and is marked) and in this
+    script's fleet batch after it."""
+    restarts = {str(k): v for k, v in s["gates"]["recovery"]["restarts"].items()}
+    per = {}
+    for sid, end in s["workers"].items():
+        mid = s["workers_after_storm"][sid]
+        start = s["workers_at_start"].get(sid, {})
+        restarted = restarts.get(str(sid), 0) > 0
+        check(end.get("alive") and mid.get("alive"), f"shard {sid} answered no stats: {end}")
+        per[f"shard-{sid}"] = {
+            "storm": grown(mid["kernel_launches"],
+                           {} if restarted else start["kernel_launches"]),
+            "fleet_batch": grown(end["kernel_launches"], mid["kernel_launches"]),
+            "restarted": restarted,
+        }
+    return per
+
+
+def check_scenario(s: dict) -> dict:
+    """The ``[scenarios]`` checks of one run: zero wrong verdicts, the
+    storm's correctness gates, the sharded recovery, every plugin and
+    worker on the card, and the path's kernels launched. Returns the run's
+    launches per kernel, by part of the run."""
+    label, runner, gates = s["run"], s["runner"], s["gates"]
+    for key, dev in s["devices"].items():
+        check(str(dev).startswith("cuda"), f"{label}: {key} runs on {dev}")
+    parts = {}
+    if runner == "engine":
+        check(gates["verdicts"]["pass"] and s["measurements"]["wrong_verdicts"] == 0,
+              f"{label}: wrong verdicts {gates['verdicts']}")
+        sweep = s["batches"][s["batches_before_sweep"]:]
+        check([b["plugin"] for b in sweep] == ["serving", "oracle"],
+              f"{label}: the verdict sweep's batches were {sweep}")
+        parts["storm"] = s["launches_before_sweep"]
+        parts["serving_batch"], parts["oracle_batch"] = (b["launches"] for b in sweep)
+        served = parts["storm"]["check_gather"] + parts["serving_batch"]["check_gather"]
+        check(served >= 1, f"{label}: the serving plugin launched no check_gather: {parts}")
+        total = s["launches"]
+        check(total["pack_gather_rows"] == total["check_gather"],
+              f"{label}: check_gather launches and packs differ: {total}")
+    elif runner == "preemption":
+        for name in PREEMPT_CORRECTNESS_GATES:
+            check(gates.get(name) is True, f"{label}: gate {name} is {gates.get(name)}")
+        parts["storm"] = s["launches_before_oracle_sweep"]
+        parts["oracle_sweep"] = grown(s["launches"], parts["storm"])
+        check(parts["storm"]["victim_select"] >= 1,
+              f"{label}: the storm's cycles launched no victim_select")
+    else:
+        check("fleet_error" not in s, f"{label}: the fleet batch failed: {s.get('fleet_error')}")
+        check(gates["verdicts"]["pass"], f"{label}: wrong verdicts {gates['verdicts']}")
+        check(gates["recovery"]["pass"], f"{label}: recovery failed {gates['recovery']}")
+        fb = s["fleet_batch"]
+        check(fb["differ"] == 0, f"{label}: {fb['differ']} of the fleet batch's verdicts differ")
+        per = worker_launches(s)
+        for part in ("storm", "fleet_batch"):
+            parts[part] = {name: sum(w[part].get(name, 0) for w in per.values())
+                           for name in KERNEL_COUNTERS}
+        check(parts["fleet_batch"]["check_gather"] >= 1,
+              f"{label}: no worker launched check_gather: {per}")
+        parts["per_worker"] = per
+    return parts
+
+
+def gate_value(g) -> tuple:
+    """A gate's (passed, value, bound), whichever runner wrote it."""
+    if isinstance(g, bool):
+        return g, None, None
+    value = g.get("value", {k: v for k, v in g.items()
+                            if k not in ("pass", "bound", "bound_ms", "bound_s")})
+    return g["pass"], value, g.get("bound", g.get("bound_ms", g.get("bound_s")))
+
+
+def drive_scenarios(card: str) -> dict:
+    """The ``[scenarios]`` phase: each run of SCENARIO_RUNS in a child
+    interpreter (``chip_smoke.py --scenario-child RUN DIR``, its own session,
+    its stderr under SCENARIO_ROOT); a child that exits non-zero, outlives
+    SCENARIO_DEADLINE_S or writes no report fails the phase."""
+    import signal
+
+    shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
+    results = {}
+    for label, runner in SCENARIO_RUNS:
+        wd = SCENARIO_ROOT / label
+        wd.mkdir(parents=True)
+        env = {**os.environ, "KT_VERDICT_CACHE": "0",
+               "PYTHONPATH": str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        log = SCENARIO_ROOT / f"{label}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--scenario-child", label, str(wd)],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env, start_new_session=True,
+            )
+            try:
+                stdout, _ = proc.communicate(timeout=SCENARIO_DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                stdout, _ = proc.communicate()
+        child_s = time.perf_counter() - t0
+        lines = [x for x in stdout.splitlines() if x.startswith(SCENARIO_REPORT)]
+        if proc.returncode != 0 or not lines:
+            print(f"[scenarios] {label} log tail:\n" + "".join(
+                log.read_text(errors="replace").splitlines(keepends=True)[-40:]), flush=True)
+            check(False, f"scenario run {label} exited {proc.returncode} "
+                         f"with {'a' if lines else 'no'} report")
+        s = json.loads(lines[-1][len(SCENARIO_REPORT):])
+        for name, g in s["gates"].items():
+            passed, value, bound = gate_value(g)
+            note = g.get("note") if isinstance(g, dict) else None
+            say("scenarios", run=label, gate=name, passed=passed,
+                value=json.dumps(value, default=str), bound=json.dumps(bound, default=str),
+                **({"note": repr(note)} if note else {}))
+        launches = check_scenario(s)
+        say("scenarios", run=label, step="summary", all_pass=s["pass"],
+            wall_s=f"{s['wall_s']:.3f}", child_s=f"{child_s:.3f}",
+            measurements=json.dumps(s["measurements"], default=str),
+            devices=json.dumps(s["devices"]), launches=json.dumps(launches),
+            **({"fleet_batch": json.dumps(s["fleet_batch"])} if "fleet_batch" in s else {}),
+            card=repr(card))
+        results[label] = dict(launches=launches, wall_s=s["wall_s"], gates=s["gates"])
+    shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
+    return results
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -2328,6 +2659,7 @@ def run() -> int:
         throttle_state_from_arrays,
     )
 
+    mark("build")
     card = card_line()
     say("card", nvidia_smi=repr(card), torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], devices=torch.cuda.device_count())
@@ -2361,6 +2693,7 @@ def run() -> int:
                 proc.wait()
     say("ptxas", seconds=f"{time.perf_counter() - t0:.2f}", kernels=json.dumps(ptxas_rows))
 
+    mark("compare")
     # -- kernel against its plain version: every variant at every shape
     max_err = mismatches = 0
     rng = np.random.default_rng(SEED)
@@ -2399,6 +2732,7 @@ def run() -> int:
     del case
     torch.cuda.empty_cache()
 
+    mark("main-path")
     # -- the full-width main path
     t0 = time.perf_counter()
     plugin = build_cluster("cuda", N_PODS, N_THROTTLES, GROUPS, N_CLUSTER, SEED)
@@ -2438,6 +2772,7 @@ def run() -> int:
               "the ClusterThrottle kind did not produce all four outcomes")
         verdicts = res["verdicts"]
 
+        mark("data-dir")
         # -- the daemon's data dir: the main path's cluster as it stands now,
         # and the in-process answers the daemon must give on it
         shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
@@ -2448,6 +2783,7 @@ def run() -> int:
         single = inprocess_answers(plugin, SEED + 8)
         trace_batch(plugin, HERE / "build" / "traces")
 
+        mark("main-path-compare")
         # -- kernel times at the shape the main path gave it (its own data)
         dm = plugin.device_manager
         ks = dm.clusterthrottle
@@ -2468,9 +2804,11 @@ def run() -> int:
         g_err, g_bad = max(g_err, err), g_bad + bad
         del t_state, t_pods, t_cols
 
+        mark("coalesce")
         # -- the coalescer's device route (check_pods_multi) ≡ its host route
         coalesce = drive_coalesce(plugin, SEED + 7)
 
+        mark("tick")
         # -- the reconcile tick over the same cluster
         tick = drive_tick(plugin, res.pop("verdicts"), N_TICKS)
         check(tick["launches"] >= N_TICKS, "check_dense was not launched on every tick")
@@ -2479,12 +2817,14 @@ def run() -> int:
               "the tick's check_gather launches and packs differ")
         g_err, g_bad = max(g_err, tick["gather"]["err"]), g_bad + tick["gather"]["mismatches"]
 
+        mark("gang-victim-preempt")
         # -- gang admission, victim selection and preemption, same cluster
         drive_gang(plugin, SEED + 4)
         victim_rows, victim_bad, victim_err = drive_victim_cells(SEED + 5)
         preempt = drive_preempt(plugin, PREEMPT_GROUP)
     finally:
         plugin.stop()
+    mark("timing")
     P, R = pods.req.shape
     T = mask.shape[1]
     flush = 64 << 20
@@ -2550,6 +2890,7 @@ def run() -> int:
         variants.append(v)
         say("variant", **{k: json.dumps(x) if isinstance(x, dict) else x for k, x in v.items()})
 
+    mark("daemon")
     # -- the daemon over the main path's cluster, then the embedded scheduler
     del s_mask, s_pre, s_pods, w_pre, w_pods, w_mask
     torch.cuda.empty_cache()
@@ -2558,6 +2899,7 @@ def run() -> int:
     finally:
         shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
 
+    mark("shards")
     # -- the sharded fleet on the card, in process and through the CLI
     shutil.rmtree(SHARDS_ROOT, ignore_errors=True)
     shards = drive_shards(verdicts, single)
@@ -2565,7 +2907,7 @@ def run() -> int:
     shutil.rmtree(SHARDS_ROOT, ignore_errors=True)
     shard_launches = {
         name: sum(per[name] for per in shards["launches"].values())
-        for name in ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
+        for name in KERNEL_COUNTERS
     }
     say("shards", step="summary", spawn_to_ready_s=f"{shards['start_s']:.3f}",
         load_and_drain_s=f"{shards['load_s']:.3f}",
@@ -2573,6 +2915,21 @@ def run() -> int:
         kill_to_convergence_s=f"{shards['converged_s']:.3f}",
         cli_spawn_to_ready_s=f"{shards_cli['ready_s']:.3f}",
         cli_batch_ms=f"{shards_cli['batch_ms']:.3f}", launches=json.dumps(shard_launches))
+
+    mark("scenarios")
+    # -- the scenario engine's storms on the card, each in a fresh interpreter
+    scenarios = drive_scenarios(card)
+    # per kernel, run and part of the run (the storm; the serving plugin's,
+    # the oracle's or the fleet's batch after it; the oracle sweep)
+    scenario_launches = {
+        name: {run: {part: n[name] for part, n in r["launches"].items() if part != "per_worker"}
+               for run, r in scenarios.items()}
+        for name in KERNEL_COUNTERS
+    }
+    say("scenarios", step="summary", launches=json.dumps(scenario_launches),
+        wall_s=json.dumps({run: round(r["wall_s"], 3) for run, r in scenarios.items()}))
+
+    say("phases", seconds=json.dumps(phase_seconds()))
 
     kernels = {"kernels": [{
         "name": "check_dense",
@@ -2584,6 +2941,7 @@ def run() -> int:
         "dense_tick_launches": tick["dense_launches"],
         "daemon_launches": daemon["launches"]["check_dense"],
         "shards_launches": shard_launches["check_dense"],
+        "scenarios_launches": scenario_launches["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -2608,6 +2966,7 @@ def run() -> int:
         "launches": preempt["launches"],
         "daemon_launches": daemon["scheduler_launches"]["victim_select"],
         "shards_launches": shard_launches["victim_select"],
+        "scenarios_launches": scenario_launches["victim_select"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -2630,6 +2989,8 @@ def run() -> int:
         "daemon_launches": daemon["launches"]["check_gather"],
         "shards_launches": shard_launches["check_gather"],
         "shards_pack_launches": shard_launches["pack_gather_rows"],
+        "scenarios_launches": scenario_launches["check_gather"],
+        "scenarios_pack_launches": scenario_launches["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,
@@ -2677,6 +3038,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        if sys.argv[1:2] == ["--scenario-child"]:
+            return scenario_child(*sys.argv[2:4])
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -32,3 +32,25 @@ def select_device(choice: str, use_device: bool = True) -> Optional[torch.device
     if not use_device:
         return None
     return resolve_device(choice)
+
+
+def add_device_argument(parser, what: str) -> None:
+    """``--device {cuda,cpu}`` (``cuda`` by default) on an entry point's
+    argument parser; ``what`` names what runs there."""
+    parser.add_argument(
+        "--device", choices=DEVICE_CHOICES, default="cuda",
+        help=f"where {what} runs: 'cuda' (default; exits non-zero when no "
+        "CUDA device is present) or 'cpu'",
+    )
+
+
+def device_or_report(choice: str) -> Optional[torch.device]:
+    """``choice`` resolved, or ``None`` after printing why it cannot be to
+    stderr: an entry point then exits 1 before it builds anything."""
+    import sys
+
+    try:
+        return resolve_device(choice)
+    except RuntimeError as e:
+        print(f"device unavailable: {e}", file=sys.stderr, flush=True)
+        return None

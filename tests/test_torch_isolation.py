@@ -3,8 +3,10 @@
 ``jax``, ``jaxlib`` or ``kube_throttler_tpu`` — at module level or inside
 a function — or names a ``kube_throttler_tpu.`` module in a string of its
 code (an argv such as ``-m kube_throttler_tpu.sharding.worker`` would run
-the JAX package in a child process); and the port's entry points refuse
-to run without CUDA unless the caller asks for the CPU."""
+the JAX package in a child process), or loads one of the JAX package's
+chaos harnesses in place of its ``tools/*_torch.py`` twin; and the port's
+entry points refuse to run without CUDA unless the caller asks for the
+CPU."""
 
 import ast
 import re
@@ -74,7 +76,37 @@ def test_no_reference_module_named_in_a_code_string(path):
     assert not bad, f"{path.relative_to(REPO)} names the JAX package in {bad}"
 
 
-def test_entry_points_refuse_cpu_unless_asked():
+# the JAX package's chaos harnesses that have a port twin (tools/<name>.py
+# beside tools/<name>_torch.py): the twin is the one a port module may load
+REFERENCE_TOOLS = sorted(
+    p.stem for p in (REPO / "tools").glob("*.py")
+    if (REPO / "tools" / f"{p.stem}_torch.py").exists()
+)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_harness_loaded(path):
+    """``tools/harness.py`` and its kind import the JAX package inside their
+    functions, so a port module that imports one (or loads it by file
+    name) would run JAX on a path that the import check above cannot see."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    docs = {id(node) for node in _docstrings(tree)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [(node.lineno, a.name) for a in node.names
+                    if a.name.split(".")[:2] in (["tools", t] for t in REFERENCE_TOOLS)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module == "tools":
+            bad += [(node.lineno, a.name) for a in node.names if a.name in REFERENCE_TOOLS]
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in docs
+              and node.value.removesuffix(".py") in REFERENCE_TOOLS
+              and node.value.endswith(".py")):
+            bad.append((node.lineno, node.value))
+    assert REFERENCE_TOOLS and not bad, f"{path.relative_to(REPO)} loads {bad}"
+
+
+def test_entry_points_refuse_cpu_unless_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from kube_throttler_tpu_torch import resolve_device
@@ -96,3 +128,28 @@ def test_entry_points_refuse_cpu_unless_asked():
     # the worker process's entry point exits before it reads its socket
     assert worker_main(["--shard-id", "0", "--shards", "1", "--ipc-fd", "-1"]) == 1
     assert KubeThrottler(args, Store(), device="cpu").device_manager.device == torch.device("cpu")
+
+    # the scenario runners and their CLIs refuse before they build a stack:
+    # no trace, report or worker appears
+    from kube_throttler_tpu_torch.scenarios import get_scenario
+    from kube_throttler_tpu_torch.scenarios.__main__ import main as scenarios_main
+    from kube_throttler_tpu_torch.scenarios.engine import run_scenario
+    from kube_throttler_tpu_torch.scenarios.hunt.__main__ import main as hunt_main
+    from kube_throttler_tpu_torch.scenarios.preemption import main as preemption_main
+    from kube_throttler_tpu_torch.scenarios.preemption import _oracle_sweep, run_preemption_storm
+    from kube_throttler_tpu_torch.scenarios.sharded import run_sharded_bad_day
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(get_scenario("smoke"), 0, str(tmp_path / "engine"), device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_preemption_storm(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _oracle_sweep(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sharded_bad_day(n_shards=2, seed=0)
+    cli_wd = tmp_path / "cli"
+    assert scenarios_main(["run", "--name", "smoke", "--workdir", str(cli_wd)]) == 1
+    assert preemption_main([]) == 1
+    assert hunt_main(["smoke", "--workdir", str(tmp_path / "hunt"), "--no-promote"]) == 1
+    assert not (tmp_path / "engine").exists() and not cli_wd.exists()
+    assert not (tmp_path / "hunt").exists()

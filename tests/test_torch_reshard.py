@@ -414,11 +414,94 @@ class TestLiveReshard:
 
 
 class TestHuntReshardSurface:
-    # The reference class's four hunt tests (mutable fault sites, shard
-    # tier routing, gang/accel axes in topology and trace, byte-identical
-    # committed traces) exercise ``scenarios/`` and ``scenarios/hunt/``,
-    # which the port has not reached yet; their copies come with that
-    # package.
+    def test_reshard_sites_are_mutable_and_known(self):
+        from kube_throttler_tpu_torch.faults.plan import KNOWN_SITES
+        from kube_throttler_tpu_torch.scenarios.hunt.mutate import MUTABLE_FAULT_SITES
+
+        for site in (
+            "reshard.handoff.torn",
+            "reshard.dest.crash",
+            "reshard.fence.race",
+            "reshard.front.crash",
+            "shard.worker.kill",
+        ):
+            assert site in MUTABLE_FAULT_SITES
+            assert site in KNOWN_SITES
+
+    def test_needs_shard_tier_routing(self):
+        from kube_throttler_tpu_torch.scenarios.dsl import FaultSpec, Scenario
+        from kube_throttler_tpu_torch.scenarios.hunt.mutate import needs_shard_tier
+
+        plain = Scenario(name="x", description="x")
+        assert not needs_shard_tier(plain)
+        armed = Scenario(
+            name="x", description="x",
+            faults=(FaultSpec(site="shard.worker.kill", mode="kill"),),
+        )
+        assert needs_shard_tier(armed)
+        armed2 = Scenario(
+            name="x", description="x",
+            faults=(FaultSpec(site="reshard.dest.crash", mode="kill"),),
+        )
+        assert needs_shard_tier(armed2)
+
+    def test_gang_accel_axes_reach_topology_and_trace(self):
+        from kube_throttler_tpu_torch.scenarios.dsl import Scenario, Topology
+        from kube_throttler_tpu_torch.scenarios.trace import build_topology, build_trace
+
+        scn = Scenario(
+            name="axes", description="x", duration_s=1.5,
+            topology=Topology(
+                pods=300, throttles=24, groups=12, gang_size=4,
+                accel_classes=3, class_threshold_frac=0.4,
+            ),
+        )
+        topo = build_topology(scn, 0)
+        acls = {p.get("acl") for p in topo["pods"]}
+        assert acls == {"ac0", "ac1", "ac2"}
+        gangs = {p["gang"] for p in topo["pods"]}
+        assert gangs and all(g.startswith("gg-") for g in gangs)
+        _header, ops = build_trace(scn, 0)
+        annotated = [op for op in ops if "acl" in op]
+        assert annotated, "trace ops must carry the accel axis"
+
+    def test_axes_off_keeps_committed_traces_byte_identical(self):
+        """The new Topology fields default OFF and must not perturb one
+        byte of an existing committed trace."""
+        from kube_throttler_tpu_torch.scenarios.corpus import get_scenario
+        from kube_throttler_tpu_torch.scenarios.trace import (
+            build_trace,
+            serialize_trace,
+            trace_sha256,
+        )
+
+        scn = get_scenario("smoke")
+        header, ops = build_trace(scn, 0)
+        sha_a = trace_sha256(serialize_trace(header, ops))
+        header2, ops2 = build_trace(scn, 0)
+        sha_b = trace_sha256(serialize_trace(header2, ops2))
+        assert sha_a == sha_b
+        assert not any("acl" in op or "gang" in op for op in ops)
+
+    def test_mutators_cover_gang_and_accel_axes(self):
+        import random
+
+        from kube_throttler_tpu_torch.scenarios.hunt.loop import base_programs
+        from kube_throttler_tpu_torch.scenarios.hunt.mutate import (
+            BOUNDS,
+            _mut_topology_accel,
+            _mut_topology_gang,
+            normalize,
+        )
+
+        base = base_programs()[0]
+        rng = random.Random(7)
+        child = normalize(_mut_topology_gang(base, rng))
+        assert BOUNDS["gang_size"][0] <= child.topology.gang_size <= BOUNDS["gang_size"][1]
+        child2 = normalize(_mut_topology_accel(base, rng))
+        assert 0 <= child2.topology.accel_classes <= BOUNDS["accel_classes"][1]
+        if child2.topology.accel_classes:
+            assert child2.topology.class_threshold_frac > 0
 
     def test_reshard_metrics_registered(self):
         from kube_throttler_tpu_torch.metrics import METRIC_NAMES

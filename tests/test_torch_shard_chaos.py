@@ -164,9 +164,15 @@ def test_sigkill_worker_mid_churn_degrades_then_recovers(sharded_stack):
     _assert_converged(front)
 
 
-# The reference's slow ``test_sharded_bad_day_scenario_gates`` drives
-# ``scenarios/sharded.py``, which the port has not reached yet; its copy
-# comes with that package.
+@pytest.mark.slow
+def test_sharded_bad_day_scenario_gates():
+    """The composed bad-day trace through 4 shard workers with a
+    kill-a-shard episode (scenarios/sharded.py — the make scenario-test
+    rung): pace, recovery, flip-p99, and zero-wrong-verdict gates."""
+    from kube_throttler_tpu_torch.scenarios.sharded import run_sharded_bad_day
+
+    report = run_sharded_bad_day(n_shards=4, seed=0, device="cpu")
+    assert report["pass"], report["gates"]
 
 
 def test_fault_site_shard_worker_kill_recovers(tmp_path):
