@@ -28,7 +28,16 @@ it drives the reconcile tick, ``full_tick_sharded`` on a 1×1 grid, over
 the same cluster: its verdicts must equal ``pre_filter_batch``'s and its
 used counts the written statuses, before and after 1,000 Throttles gain
 override windows, and a dense tick at full width must equal the sparse
-one. Then, on the same cluster: one
+one. Then the multi-device tick (``[grid]``): ``full_tick_sharded`` over
+grids of 4 slots that all lie on the card, at (2, 2), (1, 4) and (4, 1)
+and once with ``dense_mesh``, each equal to the 1×1 tick with dp·tp
+launches of each of its kernels; the ring of 4 slots over the Throttle
+kind's dense operands, equal to the 1×1 dense step; the delta apply over
+4 throttle tiles, equal to the single-device apply with negative ids
+dropped; a 4-card grid refused on this one-card host; and two ranks, child
+processes of this script (``--grid-rank``) on the card, each over half
+the pods, whose outputs equal the 1×1 step's (NCCL first, then gloo).
+Then, on the same cluster: one
 ``gang_check_groups`` over 256 pending gangs (a quarter in an accelerator
 class) must equal the sequential host oracle for every gang; the
 ``victim_select`` kernel must equal its plain version at five (N, M) cells
@@ -73,7 +82,9 @@ script is not inside a checkout of the repository; exits non-zero on any
 build failure, launch failure, mismatch or main-path check that fails.
 Everything runs in this one process (plus ``nvidia-smi``, six ``nvcc``
 processes started together — one per kernel source and one ``-Xptxas -v``
-report per source — ``cuobjdump`` for the instruction counts, and the
+report per source — ``cuobjdump`` for the instruction counts, the grid
+phase's two ranks per backend tried, each in a session of its own that is
+killed whole on failure or at its deadline, and the
 four daemons of the daemon phase, one at a time, each stopped by SIGTERM
 or killed on failure; the shards phase's 4 workers (5 with the SIGKILLed
 one's replacement), stopped with their supervisor, and its sharded daemon
@@ -191,6 +202,21 @@ SCENARIO_REPORT = "SCENARIO_REPORT "
 # every other gate (flip_p99, flip_p50, ingest_sustain, recovery, pace,
 # churn, failover) is printed with its bound and recorded, not enforced here
 PREEMPT_CORRECTNESS_GATES = ("admitted", "no_half_gangs", "victim_order", "oracle")
+# the grid phase: the main path's cluster ticked over grids of GRID_SLOTS
+# slots that all lie on the one card (tiles time-share it), at each shape
+# of GRID_SHAPES; the ring over RING_SLOTS slots; the sharded delta apply
+# over DELTA_EVENTS churn events of DELTA_SLOTS matched throttles each, ids
+# drawn from [-T, T]; and GRID_RANKS processes on the card, each holding
+# its share of the pods, NCCL tried first (deadline GRID_NCCL_DEADLINE_S),
+# then gloo
+GRID_SLOTS = 4
+GRID_SHAPES = ((2, 2), (1, 4), (4, 1))
+RING_SLOTS = 4
+DELTA_EVENTS, DELTA_SLOTS = 4096, 8
+GRID_RANKS = 2
+GRID_ROOT = HERE / "build" / "grid-smoke"
+GRID_NCCL_DEADLINE_S = 60.0
+GRID_RANK_DEADLINE_S = 120.0
 # the launch counters every kernel wrapper keeps (metrics.kernel_launch_counts)
 KERNEL_COUNTERS = ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
 # kernel instantiations ptxas must report per source (check_gather: 8
@@ -991,26 +1017,38 @@ def drive_tick(plugin, verdicts, calls: int):
                 gather=time_tick_parts(dm))
 
 
+def step_args(dm, kind: str, dense: bool, now=None):
+    """One kind's full update step operands, derived from the mirror as
+    ``full_tick_sharded`` derives them: ``(sched, pods, cols or mask,
+    counted, res_cnt, res_cnt_present, res_req, res_req_present,
+    thr_valid, now_ns)``, and the snapshot's throttle capacity."""
+    from datetime import datetime, timezone
+
+    import torch
+
+    from kube_throttler_tpu_torch.ops.overrides import _datetime_to_ns
+
+    with dm._lock:  # noqa: SLF001 — the snapshot full_tick_sharded takes
+        snap = dm._tick_snapshot_locked(dm._kind(kind), dense_mesh=dense)
+    sched = dm._tick_encode(snap)
+    dev = dm.device
+    res = tuple(torch.from_numpy(a).to(dev) for a in snap["res"])
+    thr_valid = torch.from_numpy(snap["thr_valid"]).to(dev)
+    now_ns = torch.tensor(int(_datetime_to_ns(now or datetime.now(timezone.utc))), device=dev)
+    x = snap["mask"] if dense else snap["cols"]
+    return (sched, snap["pods"], x, snap["counted"], *res, thr_valid, now_ns), snap["tcap"]
+
+
 def tick_inputs(dm):
     """The Throttle kind's sparse tick operands, derived from the mirror as
     ``full_tick_sharded`` derives them: (sched, now_ns, pods, cols,
     counted, T, res, thr_valid, thr, used_cnt, used_req, contrib, state),
     ``state`` being the ThrottleState that the tick's check_gather reads."""
-    from datetime import datetime, timezone
-
-    import torch
-
-    from kube_throttler_tpu_torch.ops.overrides import _datetime_to_ns, calculate_thresholds
+    from kube_throttler_tpu_torch.ops.overrides import calculate_thresholds
     from kube_throttler_tpu_torch.parallel import sharded
 
-    with dm._lock:  # noqa: SLF001 — the snapshot full_tick_sharded takes
-        snap = dm._tick_snapshot_locked(dm.throttle, dense_mesh=False)
-    sched = dm._tick_encode(snap)
-    dev = dm.device
-    res = tuple(torch.from_numpy(a).to(dev) for a in snap["res"])
-    thr_valid = torch.from_numpy(snap["thr_valid"]).to(dev)
-    now_ns = torch.tensor(int(_datetime_to_ns(datetime.now(timezone.utc))), device=dev)
-    pods, cols, counted, T = snap["pods"], snap["cols"], snap["counted"], snap["tcap"]
+    (sched, pods, cols, counted, *res, thr_valid, now_ns), T = step_args(dm, "throttle", False)
+    res = tuple(res)
     thr = calculate_thresholds(sched, now_ns)
     used_cnt, used_req, contrib = sharded.used_from_cols(pods, cols, counted, T)
     state, _, _ = sharded._derived_state(sched, now_ns, used_cnt, used_req, contrib,
@@ -1087,6 +1125,310 @@ def time_tick_parts(dm):
                 statuses_kernel_only_ms=parts["statuses_kernel_only_ms"],
                 packed_bytes=packed_bytes, **live,
                 shape=[P, K, T, R], err=err, mismatches=bad, **bound)
+
+
+# --------------------------------------------------------------- grid
+
+
+def kernel_counts() -> dict:
+    """The grid path's wrapper counts: check_dense, and check_gather's
+    checks and packs."""
+    from kube_throttler_tpu_torch.ops import check_dense as cd
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+
+    return {"check_dense": cd.launches, "check_gather": cg.launches,
+            "pack_gather_rows": cg.pack_launches}
+
+
+def same_tick(got: dict, want: dict) -> bool:
+    """Two ``full_tick_sharded`` results agree: counts, schedulable,
+    used_cnt and used_req (dtypes too), row and col maps, both kinds."""
+    return set(got) == set(want) and all(
+        got[k][2] == want[k][2] and got[k][5] == want[k][5] and all(
+            got[k][i].dtype == want[k][i].dtype and np.array_equal(got[k][i], want[k][i])
+            for i in (0, 1, 3, 4))
+        for k in want)
+
+
+def same_outputs(got, want) -> bool:
+    """Two steps' six outputs agree: dtypes, shapes and values."""
+    return len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and bool((g.cpu() == w.cpu()).all())
+        for g, w in zip(got, want))
+
+
+def grid_tick(plugin, grid, label: str, want: dict, now, dense: bool = False) -> dict:
+    """One ``full_tick_sharded`` over ``grid``: its wall ms and tracer
+    split, each kernel's launches against what a dp × tp tick must launch,
+    peak device memory, on a ``[grid]`` line; fails unless it ≡ ``want``."""
+    import torch
+
+    dm = plugin.device_manager
+    dp, tp = grid.dp, grid.tp
+    before = {ph: phase_total(plugin, ph)[0] for ph in TICK_PHASES[1:]}
+    k0 = kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = dm.full_tick_sharded(grid, now=now, dense_mesh=dense)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v - k0[k] for k, v in kernel_counts().items()}
+    routes = {k: v["route"] for k, v in dm.last_tick.items()}
+    # a dp × tp tick: dp·tp check_gather packs and checks for a sparse kind,
+    # dp·tp check_dense launches for a dense one
+    n_dense = sum(r == "dense" for r in routes.values())
+    expect = {"check_dense": n_dense * dp * tp,
+              "check_gather": (2 - n_dense) * dp * tp,
+              "pack_gather_rows": (2 - n_dense) * dp * tp}
+    equal = same_tick(out, want)
+    split = {f"{ph}_ms": f"{(phase_total(plugin, ph)[0] - before[ph]) * 1e3:.3f}"
+             for ph in TICK_PHASES[1:]}
+    say("grid", tick=label, mesh=json.dumps([dp, tp]), slots=json.dumps(
+        sorted({str(d) for row in grid.devices for d in row})), wall_ms=f"{wall * 1e3:.3f}",
+        **split, launches=json.dumps(launched), expected_launches=json.dumps(expect),
+        max_memory_allocated=peak, routes=json.dumps(routes, sort_keys=True),
+        equal_to_1x1=equal)
+    check(routes == ({"throttle": "dense", "clusterthrottle": "dense"} if dense
+                     else {"throttle": "sparse", "clusterthrottle": "dense"}),
+          f"grid tick {label} took routes {routes}")
+    check(launched == expect, f"grid tick {label} launched {launched}, not {expect}")
+    check(equal, f"grid tick {label} disagrees with the 1x1 tick")
+    return dict(wall_ms=wall * 1e3, launches=launched, peak=peak)
+
+
+def rank_children(inp: Path, backend: str, device: str, deadline_s: float) -> dict:
+    """GRID_RANKS children of this script (``--grid-rank``), each in a
+    session of its own, meeting through a ``file://`` rendezvous; all are
+    killed whole when one fails or the deadline passes. ``backend`` ""
+    leaves the choice to ``init_distributed`` (NCCL on the card)."""
+    import signal
+
+    tag = backend or "default"
+    init = f"file://{GRID_ROOT / f'rendezvous-{tag}'}"
+    env = {**os.environ, "PYTHONPATH": str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    outs = [GRID_ROOT / f"out{r}-{tag}.pt" for r in range(GRID_RANKS)]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(GRID_RANKS):
+            log = GRID_ROOT / f"rank{r}-{tag}.log"
+            logs.append(log)
+            with open(log, "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(HERE / "chip_smoke.py"), "--grid-rank", str(r),
+                     str(GRID_RANKS), init, backend, device, str(inp), str(outs[r])],
+                    stdout=err, stderr=subprocess.STDOUT, env=env, start_new_session=True,
+                ))
+        end = time.monotonic() + deadline_s
+        while any(p.poll() is None for p in procs) and time.monotonic() < end:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # one rank failed: the other would wait for it
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    tails = [log.read_text(errors="replace").strip().splitlines()[-3:] for log in logs]
+    return dict(rcs=[p.returncode for p in procs], seconds=time.perf_counter() - t0,
+                tails=tails, outs=outs)
+
+
+def drive_ranks(dm, now) -> dict:
+    """The two-rank leg: the Throttle kind's sparse step operands saved
+    once, GRID_RANKS children each running the sparse grid step over its
+    share of the pods (a (1, 2) grid of slots on the card each, the pods
+    axis spanning the processes), their outputs laid end to end ≡ the 1×1
+    step's. NCCL first; if it refuses two ranks on one card, gloo,
+    passed explicitly."""
+    import torch
+
+    from kube_throttler_tpu_torch.parallel import full_update_step_gather
+
+    args, _ = step_args(dm, "throttle", False, now)
+    want = full_update_step_gather(*args)
+    inp = GRID_ROOT / "inputs.pt"
+    torch.save(args, inp)
+    attempts = {}
+    for backend, deadline in (("", GRID_NCCL_DEADLINE_S), ("gloo", GRID_RANK_DEADLINE_S)):
+        r = rank_children(inp, backend, str(dm.device), deadline)
+        name = backend or "nccl"
+        attempts[name] = r
+        if all(rc == 0 for rc in r["rcs"]):
+            outs = [torch.load(o, weights_only=False) for o in r["outs"]]
+            got = (torch.cat([o["outs"][0] for o in outs]), torch.cat([o["outs"][1] for o in outs]),
+                   *outs[0]["outs"][2:])
+            equal = same_outputs(got, want) and all(
+                same_outputs(o["outs"][2:], outs[0]["outs"][2:]) for o in outs)
+            say("grid", step="ranks", backend=outs[0]["backend"], ranks=GRID_RANKS,
+                mesh=json.dumps(outs[0]["mesh"]), seconds=f"{r['seconds']:.3f}",
+                rank_step_ms=json.dumps([round(o["ms"], 3) for o in outs]),
+                rank_launches=json.dumps([o["launches"] for o in outs]),
+                equal_to_1x1=equal,
+                nccl=repr(attempts["nccl"]["tails"]) if name == "gloo" else "'used'")
+            check(equal, f"the {GRID_RANKS} {name} ranks disagree with the 1x1 step")
+            for o in outs:
+                check(o["launches"]["check_gather"] == 2 and o["launches"]["pack_gather_rows"] == 2,
+                      f"a rank launched {o['launches']}, not 2 packs and 2 checks")
+            return dict(backend=outs[0]["backend"], launches=[o["launches"] for o in outs],
+                        nccl_tails=attempts["nccl"]["tails"], seconds=r["seconds"])
+        say("grid", step="ranks-refused", backend=name, rcs=json.dumps(r["rcs"]),
+            seconds=f"{r['seconds']:.3f}", tails=repr(r["tails"]))
+    check(False, "no backend ran the ranks")
+
+
+def grid_rank_child(rank: str, world: str, init: str, backend: str, device: str, inp: str,
+                    out: str) -> int:
+    """One rank of the ``[grid]`` phase's multi-process leg, in this fresh
+    interpreter: ``init_distributed`` (``backend`` "" = its own choice),
+    a ``hybrid_mesh`` of (1, 2) slots on the card, the sparse grid step over
+    this rank's share of the pods; saves the outputs, this process's
+    kernel launches, the backend and the step's ms."""
+    import torch
+    import torch.distributed as dist
+
+    from kube_throttler_tpu_torch.ops.schema import PodBatch
+    from kube_throttler_tpu_torch.parallel import (
+        hybrid_mesh,
+        init_distributed,
+        sharded_full_update_gather,
+    )
+
+    rank, world = int(rank), int(world)
+    sched, pods, cols, counted, *rest = torch.load(inp, map_location=device, weights_only=False)
+    reset_launches()
+    init_distributed(init, world, rank, device=device, backend=backend or None)
+    try:
+        grid = hybrid_mesh(ici_shape=(1, 2), devices=[device] * 2)
+        n = counted.shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        mine = PodBatch(valid=pods.valid[rows], req=pods.req[rows],
+                        req_present=pods.req_present[rows])
+        t0 = time.perf_counter()
+        outs = sharded_full_update_gather(grid)(sched, mine, cols[rows], counted[rows], *rest)
+        outs[0].cpu()  # waits for the device
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.save(dict(outs=[o.cpu() for o in outs], launches=kernel_counts(), ms=ms,
+                        backend=dist.get_backend(), mesh=[grid.shape["pods"], grid.shape["throttles"]]),
+                   out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def drive_grid(plugin, card_name: str) -> dict:
+    """The ``[grid]`` phase over the main path's cluster: the 1×1 tick, then
+    ``full_tick_sharded`` over GRID_SLOTS slots on the card at each of
+    GRID_SHAPES and once with ``dense_mesh`` (≡ the 1×1 dense tick); the
+    ring over the Throttle kind's dense operands (≡ the 1×1 dense step);
+    the sharded delta apply (≡ the single-device apply with negative ids
+    dropped); the plugin's visible-count refusal; the ranks. Launch counts
+    are set to 0 just before and read just after. Returns the launches and
+    what the kernels line reports."""
+    from datetime import datetime, timezone
+
+    import torch
+
+    from kube_throttler_tpu_torch.ops.aggregate import apply_pod_deltas_batched
+    from kube_throttler_tpu_torch.parallel import (
+        full_update_step,
+        make_mesh,
+        make_ring_mesh,
+        ring_full_update,
+        sharded,
+        sharded_apply_deltas,
+    )
+
+    dm = plugin.device_manager
+    card = dm.device
+    now = datetime.now(timezone.utc)
+    shutil.rmtree(GRID_ROOT, ignore_errors=True)
+    GRID_ROOT.mkdir(parents=True)
+    reset_launches()
+    # the 1×1 ticks the grids are held against, each timed on a second run
+    single = make_mesh(device=card)
+    one = dm.full_tick_sharded(single, now=now)
+    ticks = {"1x1": grid_tick(plugin, single, "1x1", one, now)}
+    for shape in GRID_SHAPES:
+        label = "x".join(map(str, shape))
+        grid = make_mesh(GRID_SLOTS, shape, devices=[card] * GRID_SLOTS)
+        ticks[label] = grid_tick(plugin, grid, label, one, now)
+    one_dense = dm.full_tick_sharded(single, now=now, dense_mesh=True)
+    ticks["1x1-dense"] = grid_tick(plugin, single, "1x1-dense", one_dense, now, dense=True)
+    grid = make_mesh(GRID_SLOTS, (2, 2), devices=[card] * GRID_SLOTS)
+    ticks["2x2-dense"] = grid_tick(plugin, grid, "2x2-dense", one_dense, now, dense=True)
+    del one_dense
+
+    # the ring over the Throttle kind's dense operands ≡ the 1×1 dense step
+    args, T = step_args(dm, "throttle", True, now)
+    want = full_update_step(*args)
+    k0 = kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = ring_full_update(make_ring_mesh(RING_SLOTS, devices=[card] * RING_SLOTS))(*args)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    ring_launches = kernel_counts()["check_dense"] - k0["check_dense"]
+    equal = same_outputs(got, want)
+    say("grid", step="ring", slots=RING_SLOTS,
+        shape=f"{args[2].shape[0]}x{T}x{args[1].req.shape[1]}",
+        wall_ms=f"{ring_ms:.3f}", check_dense_launches=ring_launches,
+        expected=RING_SLOTS ** 2, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        equal_to_1x1_dense=equal)
+    check(ring_launches == RING_SLOTS ** 2, f"the ring launched check_dense {ring_launches} times")
+    check(equal, "the ring disagrees with the 1x1 dense step")
+    del args, want, got
+    torch.cuda.empty_cache()
+
+    # the sharded delta apply over the tick's own used sums
+    sargs, T = step_args(dm, "throttle", False, now)
+    sched, pods, cols, counted = sargs[:4]
+    base = sharded.used_from_cols(pods, cols, counted, T)
+    R = pods.req.shape[1]
+    g = torch.Generator(device=card).manual_seed(SEED)
+    shape = (DELTA_EVENTS, DELTA_SLOTS)
+    ids = torch.randint(-T, T + 1, shape, generator=g, device=card, dtype=torch.int32)
+    sign = torch.randint(-1, 2, shape, generator=g, device=card, dtype=torch.int64)
+    pod_req = torch.randint(0, 2**40, (DELTA_EVENTS, R), generator=g, device=card,
+                            dtype=torch.int64)
+    present = torch.rand((DELTA_EVENTS, R), generator=g, device=card) < 0.7
+    want = apply_pod_deltas_batched(*base, torch.where(ids < 0, T, ids), sign, pod_req, present)
+    counted_from_end = apply_pod_deltas_batched(*base, ids, sign, pod_req, present)
+    t0 = time.perf_counter()
+    got = sharded_apply_deltas(make_mesh(GRID_SLOTS, (1, GRID_SLOTS),
+                                         devices=[card] * GRID_SLOTS))(
+        *base, ids, sign, pod_req, present)
+    torch.cuda.synchronize()
+    delta_ms = (time.perf_counter() - t0) * 1e3
+    equal = same_outputs(got, want)
+    negatives = int((ids < 0).sum())
+    say("grid", step="deltas", mesh=json.dumps([1, GRID_SLOTS]), events=DELTA_EVENTS,
+        slots_per_event=DELTA_SLOTS, negative_ids=negatives, wall_ms=f"{delta_ms:.3f}",
+        equal_to_single_with_negatives_dropped=equal,
+        differs_from_negatives_counted_from_end=not same_outputs(got, counted_from_end))
+    check(negatives > 0 and equal, "the sharded delta apply disagrees with the single-device one")
+    del base, want, got, counted_from_end
+
+    # more slots than visible cards: refused by the plugin's surface
+    try:
+        plugin.full_tick_sharded(GRID_SLOTS, (2, 2))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    say("grid", step="visible-count", refused=repr(refused))
+    check(refused is not None and "visible" in refused,
+          "a 4-card grid on a one-card host was not refused")
+
+    ranks = drive_ranks(dm, now)
+    launches = kernel_counts()
+    say("grid", step="summary", launches=json.dumps(launches),
+        rank_launches=json.dumps(ranks["launches"]), backend=ranks["backend"],
+        card=repr(card_name))
+    shutil.rmtree(GRID_ROOT, ignore_errors=True)
+    return dict(launches=launches, ticks=ticks, ring_ms=ring_ms, delta_ms=delta_ms,
+                ranks=ranks)
 
 
 def drive_coalesce(plugin, seed: int):
@@ -2817,6 +3159,10 @@ def run() -> int:
               "the tick's check_gather launches and packs differ")
         g_err, g_bad = max(g_err, tick["gather"]["err"]), g_bad + tick["gather"]["mismatches"]
 
+        mark("grid")
+        # -- the multi-device tick: grids and a ring of slots on the card, ranks
+        grid = drive_grid(plugin, card)
+
         mark("gang-victim-preempt")
         # -- gang admission, victim selection and preemption, same cluster
         drive_gang(plugin, SEED + 4)
@@ -2939,6 +3285,7 @@ def run() -> int:
         "launches": res["launches"],
         "tick_launches": tick["launches"],
         "dense_tick_launches": tick["dense_launches"],
+        "grid_launches": grid["launches"]["check_dense"],
         "daemon_launches": daemon["launches"]["check_dense"],
         "shards_launches": shard_launches["check_dense"],
         "scenarios_launches": scenario_launches["check_dense"],
@@ -2986,6 +3333,9 @@ def run() -> int:
         "replaces": "kube_throttler_tpu/ops/check.py:228",
         "launches": res["gather_launches"],
         "tick_launches": tick["gather_launches"],
+        "grid_launches": grid["launches"]["check_gather"],
+        "grid_pack_launches": grid["launches"]["pack_gather_rows"],
+        "grid_rank_launches": [r["check_gather"] for r in grid["ranks"]["launches"]],
         "daemon_launches": daemon["launches"]["check_gather"],
         "shards_launches": shard_launches["check_gather"],
         "shards_pack_launches": shard_launches["pack_gather_rows"],
@@ -3040,6 +3390,8 @@ def main() -> int:
     try:
         if sys.argv[1:2] == ["--scenario-child"]:
             return scenario_child(*sys.argv[2:4])
+        if sys.argv[1:2] == ["--grid-rank"]:
+            return grid_rank_child(*sys.argv[2:9])
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

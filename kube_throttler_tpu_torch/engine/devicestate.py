@@ -67,7 +67,11 @@ from ..ops.aggregate import apply_pod_deltas_batched
 from ..ops.fastcheck import precompute_check_state
 from ..ops.overrides import _datetime_to_ns, encode_override_schedule
 from ..ops.schema import DimRegistry, PodBatch, ThrottleState
-from ..parallel.sharded import full_update_step, full_update_step_gather
+from ..parallel.sharded import (
+    full_update_step_gather,
+    sharded_full_update,
+    sharded_full_update_gather,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -1357,6 +1361,9 @@ class DeviceStateManager:
         # {kind: {"route": "sparse" | "dense", "overrides": O}} — the route
         # and override capacity of each kind in the last full tick
         self.last_tick: Dict[str, dict] = {}
+        # built grid steps for full_tick_sharded, keyed (grid, on_equal,
+        # step3, route); lock-free: an idempotent cache, at worst built twice
+        self._sharded_steps: dict = {}
         if arena is not None:
             for ks in (self.throttle, self.clusterthrottle):
                 ks.arena = arena
@@ -2765,14 +2772,18 @@ class DeviceStateManager:
         grid (``parallel.make_mesh``). Per kind it resolves time-varying
         thresholds from the override schedule, re-aggregates ``used`` from
         the live pod set, recomputes the throttled flags, and classifies
-        every (pod × throttle) admission cell. Only the 1×1 grid runs; a
-        larger one raises (ROADMAP queue 1 item 9).
+        every (pod × throttle) admission cell; across tiles the only
+        traffic is two sums (used partials over the pods axis, verdict
+        counts over the throttles axis).
 
-        Route: whenever the sparse [P,K] cols companion exists the tick is
-        ``full_update_step_gather`` (no [P,T] tensor at all). The dense
-        ``full_update_step`` over the [P,T] mask — chunked column sums and
-        the ``check_dense`` kernel — runs for near-dense masks and under
-        ``dense_mesh=True``.
+        Route, as the JAX package routes it: whenever the sparse [P,K] cols
+        companion exists, the 1×1 grid runs ``full_update_step_gather``
+        and a larger grid ``sharded_full_update_gather`` (cols rows split
+        over the pods axis, global ids rebased per throttle tile; each slot
+        launches the ``check_gather`` pack and check). The dense
+        ``sharded_full_update`` over [P/dp, T/tp] mask tiles — chunked
+        column sums and a ``check_dense`` launch per slot — runs for
+        near-dense masks and under ``dense_mesh=True``.
 
         Semantics: unlike ``check_batch`` (which classifies against the
         WRITTEN statuses, exactly what the reference's PreFilter reads —
@@ -2781,21 +2792,23 @@ class DeviceStateManager:
         On a static store both agree (tested); under churn the tick is
         ahead of the written statuses by design. The snapshot is taken
         under the lock; the device handles it holds are never written
-        afterwards (copy-on-write), so the work outside the lock reads one
-        point in the event stream.
+        afterwards (copy-on-write; tiles are sliced from them), so the work
+        outside the lock reads one point in the event stream.
 
         Returns {kind: (counts int32[P,4], schedulable bool[P], row_map,
         used_cnt int64[T], used_req int64[T,R], col_map)}, the arrays on
         the host.
         """
-        dp, tp = (mesh.shape["pods"], mesh.shape["throttles"])
-        if (dp, tp) != (1, 1):
-            raise NotImplementedError(
-                f"full_tick_sharded on a ({dp},{tp}) grid: ROADMAP queue 1 item 9"
-            )
-        if mesh.device != self.device:
+        dp, tp = mesh.dp, mesh.tp
+        if mesh.world != 1:
             raise ValueError(
-                f"grid device {mesh.device} is not the manager's device {self.device}"
+                f"a grid over {mesh.world} processes: the store's tick runs in one process"
+            )
+        other = {d for row in mesh.devices for d in row if d.type != self.device.type}
+        if other:
+            raise ValueError(
+                f"grid slots on {sorted(map(str, other))} are not the manager's "
+                f"device type ({self.device})"
             )
         now_ns = torch.tensor(
             int(_datetime_to_ns(now or datetime.now(timezone.utc))),
@@ -2821,7 +2834,7 @@ class DeviceStateManager:
             step3 = True if kind == "throttle" else on_equal
             with self.tracer.trace("tick_device"):
                 counts, schedulable, used_cnt, used_req, _, _ = self._tick_step(
-                    snap, sched, now_ns, on_equal, step3
+                    mesh, snap, sched, now_ns, on_equal, step3
                 )
                 out[kind] = (
                     counts.cpu().numpy(), schedulable.cpu().numpy(), snap["row_map"],
@@ -2880,20 +2893,26 @@ class DeviceStateManager:
             override_capacity=_next_pow2(max_o, lo=1), device=self.device,
         )
 
-    def _tick_step(self, snap: dict, sched, now_ns, on_equal: bool, step3: bool):
-        """One kind's full update step on the snapshot: the sparse form
-        over its cols, else the dense form over its mask."""
+    def _tick_step(self, mesh, snap: dict, sched, now_ns, on_equal: bool, step3: bool):
+        """One kind's full update step on the snapshot over ``mesh``: the
+        single-device sparse step on a 1×1 grid, the sharded sparse step
+        over its cols on a larger one, else the sharded dense step over its
+        mask."""
         res = tuple(_upload(a, self.device) for a in snap["res"])
         thr_valid = _upload(snap["thr_valid"], self.device)
-        if snap["cols"] is not None:
-            return full_update_step_gather(
-                sched, snap["pods"], snap["cols"], snap["counted"], *res, thr_valid,
-                now_ns, on_equal=on_equal, step3_on_equal=step3,
+        x = snap["mask"] if snap["cols"] is None else snap["cols"]
+        args = (sched, snap["pods"], x, snap["counted"], *res, thr_valid, now_ns)
+        if snap["cols"] is not None and (mesh.dp, mesh.tp) == (1, 1):
+            return full_update_step_gather(*args, on_equal=on_equal, step3_on_equal=step3)
+        route = "dense" if snap["cols"] is None else "gather"
+        key = (mesh, on_equal, step3, route)
+        step = self._sharded_steps.get(key)
+        if step is None:
+            build = sharded_full_update if route == "dense" else sharded_full_update_gather
+            step = self._sharded_steps[key] = build(
+                mesh, on_equal=on_equal, step3_on_equal=step3
             )
-        return full_update_step(
-            sched, snap["pods"], snap["mask"], snap["counted"], *res, thr_valid,
-            now_ns, on_equal=on_equal, step3_on_equal=step3,
-        )
+        return step(*args)
 
     def check_batch_all(self, on_equal: bool = False):
         """Both kinds' batch checks against ONE coherent device snapshot:

@@ -671,8 +671,10 @@ class KubeThrottler:
         freshly-derived state, not the written statuses (ahead of them
         under churn).
 
-        The port runs the 1×1 grid on the plugin's device (``n_devices``
-        defaults to 1); a larger grid raises (ROADMAP queue 1 item 9).
+        The grid's slots are the first ``n_devices`` cards when the
+        plugin's device is CUDA, else ``n_devices`` slots on the CPU;
+        ``n_devices`` defaults to the product of ``shape`` when given, else
+        to every visible card on CUDA and to 1 on the CPU.
         """
         if self.device_manager is None:
             raise RuntimeError("full_tick_sharded requires the device data plane")

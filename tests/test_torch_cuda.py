@@ -15,7 +15,9 @@ not installed:
   (``pre_filter_batch`` verdicts and routes), with the kernel launched;
 - the tick's torch functions (override resolution, the aggregations and
   scatters, both step forms) on CUDA tensors ≡ on CPU tensors at a mid
-  shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``;
+  shape, and ``full_tick_sharded`` on ``device="cuda"`` ≡ ``"cpu"``, also
+  on (2, 2) and (1, 4) grids of four slots on the card, and the ring of
+  four slots on the card ≡ on the CPU;
 - the victim_select kernel ≡ its plain version (the ring and wide
   routes, odd M, chunk edges, stops mid-chunk, negative contributions, the
   int64 extremes, N = 0, caps), a refused launch raises, and
@@ -333,6 +335,48 @@ def test_tick_on_card_matches_cpu(card, dense):
     assert got.full_tick_sharded() == want.full_tick_sharded()
     got.stop()
     want.stop()
+
+
+@pytest.mark.cuda
+def test_grid_ticks_and_ring_on_card_match_cpu(card):
+    """The (2, 2) and (1, 4) grid ticks with all four slots on the card ≡
+    the same grids of CPU slots on one seeded store, each slot launching
+    its tile's kernels; the ring of 4 slots on the card over the tick's
+    dense operands ≡ the ring on the CPU, check_dense once per hop per
+    slot."""
+    from datetime import datetime, timezone
+
+    from kube_throttler_tpu_torch.ops import check_gather as cg
+    from kube_throttler_tpu_torch.parallel import make_mesh, make_ring_mesh, ring_full_update
+
+    now = datetime.now(timezone.utc)
+    want, got = _stack("cpu"), _stack(card)
+    for shape in ((2, 2), (1, 4)):
+        before = (cd.launches, cg.launches, cg.pack_launches)
+        out = got.device_manager.full_tick_sharded(make_mesh(4, shape, devices=[card] * 4),
+                                                   now=now)
+        assert (cd.launches, cg.launches, cg.pack_launches) == tuple(b + 4 for b in before)
+        assert got.device_manager.last_tick["throttle"]["route"] == "sparse"
+        ref = want.device_manager.full_tick_sharded(make_mesh(4, shape, device="cpu"), now=now)
+        for kind in ("throttle", "clusterthrottle"):
+            for g, w in zip(out[kind], ref[kind]):
+                if isinstance(w, np.ndarray):
+                    assert g.dtype == w.dtype and np.array_equal(g, w), (shape, kind)
+                else:
+                    assert g == w, (shape, kind)
+    got.stop()
+    want.stop()
+
+    def ring(device, devices):
+        sched, pods, mask, _, counted, res, thr_valid, now_ns, _ = _tick_inputs(device)
+        return ring_full_update(make_ring_mesh(4, device=device, devices=devices))(
+            sched, pods, mask, counted, *res, thr_valid, now_ns)
+
+    before = cd.launches
+    on_card = ring(card, [card] * 4)
+    assert cd.launches == before + 16
+    for g, w in zip(on_card, ring("cpu", None)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 def _victim_seeded(rng, N, M):

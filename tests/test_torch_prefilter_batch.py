@@ -231,17 +231,21 @@ def test_dense_dispatch_failure(monkeypatch, failure):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The multi-device tick is not ported yet and raises. Gang admission
-    is ported, and answers as the reference does on the same store."""
+    """The multi-device tick answers as the reference's 8-device tick does,
+    and a grid shape that does not match its device count raises as the
+    reference's does. Gang admission answers as the reference does on the
+    same store."""
     monkeypatch.setenv("KT_VERDICT_CACHE", "0")
     ref, port = _stacks()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        port.full_tick_sharded(8, (4, 2))
+    assert port.full_tick_sharded(8, (4, 2)) == ref.full_tick_sharded(8, (4, 2))
+    for plugin in (port, ref):
+        with pytest.raises(ValueError, match="needs 8 devices"):
+            plugin.full_tick_sharded(4, (4, 2))
     keys = sorted(p.key for p in port.listers.pods.list() if not p.spec.node_name)[:2]
     got = port.pre_filter_gang("g", [port.store.get_pod(*k.split("/")) for k in keys])
     want = ref.pre_filter_gang("g", [ref.store.get_pod(*k.split("/")) for k in keys])
     assert (got.code.name, got.reasons) == (want.code.name, want.reasons)
-    # an unported path is not a device failure: the breaker stays closed
+    # a refused grid is not a device failure: the breaker stays closed
     assert port.device_manager.breaker_state() == "closed"
     ref.stop()
     port.stop()

@@ -13,8 +13,10 @@
   written ``status.used``; an active override is resolved; a tick racing
   store churn reads one coherent snapshot; the snapshot's device handles
   are never written after the lock is released.
-- A grid larger than 1×1 raises, ``device=None`` raises without CUDA, and
-  a kernel fault reaches the caller.
+- A grid whose shape, slots or capacities do not fit raises,
+  ``device=None`` raises without CUDA, and a kernel fault reaches the
+  caller. (The grids larger than 1×1 are held in
+  ``tests/test_torch_sharded_tick.py``.)
 """
 
 import random
@@ -421,21 +423,36 @@ def test_snapshot_handles_are_not_written_after_the_lock():
 # ------------------------------------------------------------ refusals
 
 
-def test_grid_larger_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        make_mesh(8, (4, 2), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        make_mesh(2, device=CPU)
+def test_grid_larger_than_one_device_raises(monkeypatch):
+    """The refusals that remain for a grid: a shape that does not match
+    its slot count, more slots than visible cards, a slot on another
+    device type than the manager's, a grid over several processes, and
+    capacities the shape does not divide. Each raises ``ValueError`` and
+    runs nothing."""
     with pytest.raises(ValueError, match="needs 8 devices"):
         make_mesh(4, (4, 2), device=CPU)
+    with pytest.raises(ValueError, match="requested 4 devices but only 2 are visible"):
+        make_mesh(4, devices=[CPU, CPU])
     store, plugin = port_stack()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        plugin.full_tick_sharded(8, (4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        plugin.device_manager.full_tick_sharded(Grid(2, 1, torch.device(CPU)))
-    with pytest.raises(ValueError, match="not the manager's device"):
-        plugin.device_manager.full_tick_sharded(Grid(1, 1, torch.device("meta")))
+    populate(store, random.Random(7), n_thr=12, n_pods=40)
+    plugin.run_pending_once()
+    dm = plugin.device_manager
+    with pytest.raises(ValueError, match="needs 8 devices"):
+        plugin.full_tick_sharded(4, (4, 2))
+    with pytest.raises(ValueError, match="not the manager's device type"):
+        dm.full_tick_sharded(make_mesh(2, devices=[CPU, "meta"]))
+    with pytest.raises(ValueError, match="runs in one process"):
+        dm.full_tick_sharded(Grid(grid().devices, world=2, rank=1))
+    with pytest.raises(ValueError, match="must divide padded capacities"):
+        dm.full_tick_sharded(make_mesh(3, (3, 1), device=CPU))
+    assert dm.last_tick == {}, "a refused tick ran"
     plugin.stop()
+    # on CUDA the slots are cards: more than are visible is refused
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 4 devices but only 1 are visible"):
+        make_mesh(4, (2, 2), device="cuda")
+    assert make_mesh(device="cuda").devices == ((torch.device("cuda", 0),),)
 
 
 def test_grid_needs_an_explicit_device_without_cuda():
