@@ -73,9 +73,21 @@ preemption storm (its correctness gates; its cycles launch
 the killed worker's recovery; after the storm this script reads each
 worker's launches and sends the fleet one batch, held against a host
 oracle, that launches ``check_gather`` on the workers); every gate is
-printed with its bound, and the latency gates are recorded, not enforced. One line per phase; then one
-``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+printed with its bound, and the latency gates are recorded, not enforced.
+Last, the main path with the analyzer's three runtime twins armed
+(``[armed]``), in a child interpreter of this script (``--armed-child``)
+with ``KT_LOCK_ASSERT=1 KT_RACE_DETECT=1 KT_EPOCH_ASSERT=1
+KT_VERDICT_CACHE=0``: the main path's cluster on the card, its reconcile
+workers running and a churn thread adding and deleting pods, through 3
+``pre_filter_batch``, a tick, 200 single-pod PreFilters (each twice, the
+second a verdict-cache hit that the epoch assassin recomputes), a
+``gang_check_groups`` and a ``maybe_preempt_gang``; every kernel must
+launch in it, and no lock-order or lock-assertion error, uncaught thread
+exception, race report or stale verdict may occur; then, the churn
+stopped, one more batch is held against the host oracle. One line per
+phase; then one ``{"kernels": [...]}`` JSON line, the card's
+``nvidia-smi`` name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent or when the
 script is not inside a checkout of the repository; exits non-zero on any
@@ -91,7 +103,9 @@ one's replacement), stopped with their supervisor, and its sharded daemon
 with its 4 workers, stopped by SIGTERM; the scenarios phase's four child
 interpreters, one at a time, each in a session of its own that is killed
 whole if it outlives its deadline, with the sharded run's workers and the
-bad day's failover children under it).
+bad day's failover children under it; and the armed phase's child
+interpreter, in a session of its own that is killed whole if it outlives
+its deadline).
 """
 
 from __future__ import annotations
@@ -217,6 +231,34 @@ GRID_RANKS = 2
 GRID_ROOT = HERE / "build" / "grid-smoke"
 GRID_NCCL_DEADLINE_S = 60.0
 GRID_RANK_DEADLINE_S = 120.0
+# the armed phase: a child interpreter of this script (``--armed-child``)
+# with the analyzer's three runtime twins armed — instrumented locks that
+# raise on an order inversion or a bad hold, the lockset race detector
+# and the verdict-coherence assassin, all three armed at import — builds
+# ARMED_CLUSTER (pods, Throttles, label groups, ClusterThrottles) on the
+# card and drives the main path while a churn thread applies pod
+# ADDED/DELETED events through the store: ARMED_BATCHES pre_filter_batch
+# calls, one tick, single-pod PreFilters (each twice, the second a
+# verdict-cache hit that the assassin shadow-checks), one
+# gang_check_groups and one maybe_preempt_gang. The churn's pods lie in the
+# label groups ≡ ARMED_CHURN_MOD (mod N_CLUSTER), under ClusterThrottle
+# c{ARMED_CHURN_MOD}; the preempted group is not one of them. ARMED_SINGLE
+# "quiet" probes lie outside them, so nothing moves their state between
+# the two calls, and their repeat must agree. ARMED_SINGLE "churned" probes
+# lie in them, and each churned group's first Throttle is set, before the
+# churn starts, to its used cpu + 300m, so the churn's pods flip those
+# probes' verdicts, and ARMED_CHURNED_GAP_S lies between their two calls:
+# the churn moves their epochs in between, so a repeat may differ there,
+# and a covered mutation that skipped its bump would show as a hit the
+# assassin finds stale.
+ARMED_ENV = {"KT_LOCK_ASSERT": "1", "KT_RACE_DETECT": "1", "KT_EPOCH_ASSERT": "1",
+             "KT_VERDICT_CACHE": "0"}
+ARMED_CLUSTER = (N_PODS, N_THROTTLES, GROUPS, N_CLUSTER)
+ARMED_BATCHES, ARMED_SINGLE, ARMED_CHURN_MOD = 3, 200, 0
+ARMED_CHURNED_GAP_S = 0.02
+ARMED_DEADLINE_S = 600.0
+ARMED_ROOT = HERE / "build" / "armed-smoke"
+ARMED_REPORT = "ARMED_REPORT "
 # the launch counters every kernel wrapper keeps (metrics.kernel_launch_counts)
 KERNEL_COUNTERS = ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
 # kernel instantiations ptxas must report per source (check_gather: 8
@@ -845,6 +887,25 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         routes.append(dict(dm.last_batch_routes))
     launches, gather_launches, pack_launches = cd.launches, cg.launches, cg.pack_launches
 
+    n_probe, mismatches, tally, cl_tally = oracle_check(plugin, out, sample, seed)
+    shapes = {
+        kind: {"pods": ks.pcap, "throttles": ks.tcap, "dims": ks.R, "cols_K": ks._cols_K}
+        for kind, ks in (("throttle", dm.throttle), ("clusterthrottle", dm.clusterthrottle))
+    }
+    return dict(
+        shapes=shapes, per_call=per_call, routes=routes, launches=launches,
+        gather_launches=gather_launches, pack_launches=pack_launches,
+        breaker=dm.breaker_state(), n_verdicts=len(out["schedulable"]),
+        errors=len(out["errors"]), oracle_n=n_probe, oracle_mismatches=mismatches,
+        tally=tally, cluster_tally=cl_tally, verdicts=out["schedulable"],
+    )
+
+
+def oracle_check(plugin, out, sample: int, seed: int):
+    """(pods probed, verdicts differing, tally, ClusterThrottle tally): a
+    seeded sample of the stored pods, each checked by the host oracle
+    (the controllers' ``check_throttled``) against the batch's verdict in
+    ``out``."""
     pods = plugin.listers.pods.list()
     rng = random.Random(seed + 1)
     probe = rng.sample(pods, min(sample, len(pods)))
@@ -863,17 +924,7 @@ def drive_main_path(plugin, calls: int, sample: int, seed: int):
         cl_tally["active"] += bool(ca) and not ce
         cl_tally["insufficient"] += bool(ci) and not (ce or ca)
         cl_tally["schedulable"] += not (ce or ca or ci)
-    shapes = {
-        kind: {"pods": ks.pcap, "throttles": ks.tcap, "dims": ks.R, "cols_K": ks._cols_K}
-        for kind, ks in (("throttle", dm.throttle), ("clusterthrottle", dm.clusterthrottle))
-    }
-    return dict(
-        shapes=shapes, per_call=per_call, routes=routes, launches=launches,
-        gather_launches=gather_launches, pack_launches=pack_launches,
-        breaker=dm.breaker_state(), n_verdicts=len(out["schedulable"]),
-        errors=len(out["errors"]), oracle_n=len(probe), oracle_mismatches=mismatches,
-        tally=tally, cluster_tally=cl_tally, verdicts=out["schedulable"],
-    )
+    return len(probe), mismatches, tally, cl_tally
 
 
 def phase_total(plugin, phase):
@@ -1498,7 +1549,7 @@ def add_accel_classes(plugin):
     return edited
 
 
-def build_gangs(plugin, seed: int):
+def build_gangs(plugin, seed: int, n_groups: int = GROUPS):
     """GANGS groups of GANG_SIZE pending members. A gang's members share
     one label group (so each matches its ~20 Throttles and its
     ClusterThrottle) and one cpu request of 10-50m. A quarter of the gangs
@@ -1509,11 +1560,11 @@ def build_gangs(plugin, seed: int):
     from kube_throttler_tpu_torch.api.pod import make_pod
 
     rng = random.Random(seed)
-    classed = [g for g in range(GROUPS) if g % 10 == 7]
+    classed = [g for g in range(n_groups) if g % 10 == 7]
     groups, stored = [], []
     for k in range(GANGS):
         cls = GANG_CLASS if k % 4 == 0 else None
-        g = rng.choice(classed) if cls else rng.randrange(GROUPS)
+        g = rng.choice(classed) if cls else rng.randrange(n_groups)
         cpu = rng.choice((10, 20, 30, 40, 50))
         members = [
             make_pod(f"gang{k}-{r}", labels={"grp": f"g{g}", "mod": f"m{g % N_CLUSTER}"},
@@ -2976,6 +3027,356 @@ def drive_scenarios(card: str) -> dict:
     return results
 
 
+# --------------------------------------------------------------- armed
+
+
+class Churn:
+    """A thread that applies pod ADDED/DELETED events through ``store``:
+    Running pods of the label groups ≡ ARMED_CHURN_MOD (mod n_cluster),
+    each deleted WINDOW creations after it was added, and the rest deleted
+    when it stops. ``errors`` holds what an event or the loop raised."""
+
+    WINDOW = 32
+
+    def __init__(self, store, groups: int, n_cluster: int):
+        import threading
+
+        self.store = store
+        self.groups = [g for g in range(groups) if g % n_cluster == ARMED_CHURN_MOD]
+        self.n_cluster = n_cluster
+        self.added = self.deleted = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="armed-churn", daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=120)
+        check(not self._thread.is_alive(), "the churn thread did not stop")
+
+    def _apply(self, ops) -> None:
+        for res in self.store.apply_events(ops):
+            if isinstance(res, Exception):
+                self.errors.append(repr(res))
+
+    def _run(self) -> None:
+        from collections import deque
+
+        from kube_throttler_tpu_torch.api.pod import make_pod
+
+        rng = random.Random(SEED + 9)
+        live = deque()
+        try:
+            while not self._stop.is_set():
+                g = rng.choice(self.groups)
+                pod = make_pod(f"churn-{self.added}",
+                               labels={"grp": f"g{g}", "mod": f"m{g % self.n_cluster}"},
+                               requests={"cpu": f"{rng.randrange(1, 8) * 100}m"},
+                               node_name="node-1", phase="Running")
+                self._apply([("create", "Pod", pod)])
+                self.added += 1
+                live.append(pod.key)
+                if len(live) > self.WINDOW:
+                    self._apply([("delete", "Pod", live.popleft())])
+                    self.deleted += 1
+                time.sleep(0.002)
+            self._apply([("delete", "Pod", key) for key in live])
+            self.deleted += len(live)
+        except Exception as e:  # noqa: BLE001 — reported, fails the phase
+            self.errors.append(repr(e))
+
+
+def settle(plugin, quiet_s: float = 1.0, deadline_s: float = 120.0) -> float:
+    """Wait until both controllers' work queues have been empty, with no
+    key in process, for ``quiet_s``; returns the seconds waited."""
+
+    def busy(q) -> bool:
+        with q._lock:  # noqa: SLF001 — the queue has no idle probe of its own
+            return bool(len(q) or q._processing)  # noqa: SLF001
+
+    t0 = quiet = time.perf_counter()
+    while True:
+        now = time.perf_counter()
+        if any(busy(c.workqueue) for c in (plugin.throttle_ctr, plugin.cluster_throttle_ctr)):
+            quiet = now
+        elif now - quiet >= quiet_s:
+            return now - t0
+        check(now - t0 < deadline_s, "the reconcile queues did not settle")
+        time.sleep(0.05)
+
+
+@contextmanager
+def thread_errors():
+    """Every uncaught exception of a thread while the block runs; the
+    hook is undone on exit."""
+    import threading
+
+    errors = []
+    hook = threading.excepthook
+    threading.excepthook = lambda a: errors.append(
+        f"{a.thread.name if a.thread else '?'}: {a.exc_type.__name__}: {a.exc_value}"[:4000])
+    try:
+        yield errors
+    finally:
+        threading.excepthook = hook
+
+
+def armed_child(n_pods: int, n_throttles: int, groups: int, n_cluster: int,
+                device: str = "cuda") -> int:
+    """The ``[armed]`` phase, in this fresh interpreter whose environment
+    arms the runtime twins (ARMED_ENV): the cluster on ``device``, its
+    reconcile workers started, then the phase's calls (ARMED_CLUSTER's
+    comment) under the churn, the launch counts set to 0 just before
+    them. Then the churn stops, the queues settle, and one more
+    ``pre_filter_batch`` is held against the host oracle on that final
+    state. Prints ``ARMED_REPORT {...}``: the shape, the seconds, each
+    kernel's launches, every lock-order, lock-assertion or hold-budget
+    violation raised in any thread (``lockorder.reports()``, caught or
+    not), every uncaught thread exception, the race reports and the
+    assassin's reports made since it started, its checks, the oracle
+    comparison. The tests rehearse it on the CPU (``device="cpu"``)."""
+    from kube_throttler_tpu_torch.utils import epochassert, lockorder, racedetect
+
+    races0, stale0, locks0 = racedetect.reports(), epochassert.reports(), lockorder.reports()
+    with thread_errors() as uncaught:
+        out = armed_phase(n_pods, n_throttles, groups, n_cluster, device)
+    out["lock_errors"] = [e[:4000] for e in lockorder.reports()[len(locks0):]]
+    out["thread_errors"] = uncaught
+    out["race_reports"] = [r.render() for r in racedetect.reports()
+                           if not any(r is b for b in races0)]
+    out["race_waivers_fired"] = sorted(racedetect.fired_waivers())
+    out["stale_verdicts"] = epochassert.reports()[len(stale0):]
+    print(ARMED_REPORT + json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def armed_phase(n_pods: int, n_throttles: int, groups: int, n_cluster: int, device: str) -> dict:
+    """What ``armed_child`` drives and measures, as a dict."""
+    from dataclasses import replace
+
+    import torch
+
+    from kube_throttler_tpu_torch.api.pod import make_pod
+    from kube_throttler_tpu_torch.api.types import ResourceAmount
+    from kube_throttler_tpu_torch.engine.verdictcache import VerdictCache
+    from kube_throttler_tpu_torch.metrics import kernel_launch_counts
+    from kube_throttler_tpu_torch.quantity import to_milli
+    from kube_throttler_tpu_torch.utils import epochassert, lockorder, racedetect
+
+    armed = {"lock_assert": lockorder.lock_assert_enabled(), "race_detect": racedetect.enabled(),
+             "epoch_assert": epochassert.enabled()}
+    check(all(armed.values()), f"the runtime twins are not armed: {armed}")
+    out = {"card": torch.cuda.get_device_name(0) if device == "cuda" else device,
+           "armed": armed, "cluster": [n_pods, n_throttles, groups, n_cluster]}
+    t0 = time.perf_counter()
+    plugin = build_cluster(device, n_pods, n_throttles, groups, n_cluster, SEED)
+    out["build_s"] = time.perf_counter() - t0
+    store, dm = plugin.store, plugin.device_manager
+    out["main_lock"] = type(dm._lock).__name__  # noqa: SLF001
+    check("Instrumented" in out["main_lock"], f"the mirror's lock is a {out['main_lock']}")
+    t0 = time.perf_counter()
+    plugin.run_pending_once()
+    dm.prewarm()
+    plugin.throttle_ctr.start()
+    plugin.cluster_throttle_ctr.start()
+    out["settle_s"] = time.perf_counter() - t0
+
+    churn = Churn(store, groups, n_cluster)
+    # each churned group's first Throttle at its used cpu + 300m, so the
+    # churn's pods flip its verdicts (ARMED_CLUSTER's comment)
+    for g in churn.groups:
+        thr = store.get_throttle("default", f"t{g}")
+        used = to_milli(thr.status.used.resource_requests.get("cpu", "0"))
+        store.update_throttle_spec(replace(thr, spec=replace(
+            thr.spec, threshold=ResourceAmount.of(requests={"cpu": f"{used + 300}m"}))))
+    out["near_throttles"] = len(churn.groups)
+    reset_launches()
+    t_phase = time.perf_counter()
+    churn.start()
+    try:
+        # the batches, on a moving state: every pod answered, no error
+        batches = out["batches"] = []
+        for _ in range(ARMED_BATCHES):
+            t0 = time.perf_counter()
+            res = plugin.pre_filter_batch()
+            batches.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "verdicts": len(res["schedulable"]), "errors": len(res["errors"]),
+                            "routes": dict(dm.last_batch_routes)})
+        t0 = time.perf_counter()
+        tick = plugin.full_tick_sharded(1)
+        out["tick"] = {"ms": (time.perf_counter() - t0) * 1e3, "mesh": tick["mesh"],
+                       "verdicts": len(tick["schedulable"]), "errors": len(tick["errors"])}
+
+        # single-pod PreFilters, each twice: the second is a hit of a
+        # verdict cache attached for this step, which the assassin
+        # shadow-recomputes (every hit: sample 1); the quiet probes first,
+        # then the churned (ARMED_CLUSTER's comment)
+        rng = random.Random(SEED + 10)
+        stored = [p for p in plugin.listers.pods.list() if not p.name.startswith("churn-")]
+        churned = f"m{ARMED_CHURN_MOD}"
+        probe_sets = {
+            "quiet": rng.sample([p for p in stored if p.labels.get("mod") != churned],
+                                ARMED_SINGLE),
+            "churned": rng.sample([p for p in stored if p.labels.get("mod") == churned],
+                                  ARMED_SINGLE),
+        }
+        plugin.verdict_cache = VerdictCache(capacity=65536)
+        epochassert.set_sample(1)
+        out["single"] = {}
+        for name, probes in probe_sets.items():
+            hits0, misses0 = plugin.verdict_cache.stats()[:2]
+            stale0 = len(epochassert.reports())
+            differ = moved = 0
+            t0 = time.perf_counter()
+            for pod in probes:
+                fp = dm.verdict_fingerprint(pod)
+                first = plugin.pre_filter(pod)
+                if name == "churned":
+                    time.sleep(ARMED_CHURNED_GAP_S)  # the churn moves on
+                second = plugin.pre_filter(pod)
+                differ += (first.code, sorted(first.reasons)) != (second.code, sorted(second.reasons))
+                moved += dm.verdict_fingerprint(pod) != fp
+            hits, misses = plugin.verdict_cache.stats()[:2]
+            out["single"][name] = {
+                "pods": len(probes), "ms": (time.perf_counter() - t0) * 1e3,
+                "cache_hits": hits - hits0, "cache_misses": misses - misses0,
+                "epoch_moved": moved, "repeat_differs": differ,
+                "stale_verdicts": len(epochassert.reports()) - stale0}
+        plugin.verdict_cache = None
+
+        t0 = time.perf_counter()
+        gangs = build_gangs(plugin, SEED + 4, n_groups=groups)
+        answered = dm.gang_check_groups(gangs)
+        out["gang"] = {"gangs": len(gangs), "answered": len(answered),
+                       "fit": sum(v["ok"] for v in answered.values()),
+                       "ms": (time.perf_counter() - t0) * 1e3}
+
+        # a rejected priority-5 gang in PREEMPT_GROUP's label group, then a cycle
+        plugin.set_policy_specs([dict(PREEMPT_POLICY)])
+        thr = store.get_throttle("default", f"t{PREEMPT_GROUP}")
+        used = to_milli(thr.status.used.resource_requests["cpu"])
+        store.update_throttle_spec(replace(thr, spec=replace(
+            thr.spec, threshold=ResourceAmount.of(requests={"cpu": f"{used + 300}m"}))))
+        gang = [make_pod(f"hi-{r}", labels={"grp": f"g{PREEMPT_GROUP}",
+                                            "mod": f"m{PREEMPT_GROUP % n_cluster}"},
+                         requests={"cpu": "100m"}, group="hi", group_size=GANG_SIZE,
+                         priority=5)
+                for r in range(GANG_SIZE)]
+        deadline = time.perf_counter() + 60
+        while plugin.pre_filter_gang("default/hi", gang).is_success():
+            check(time.perf_counter() < deadline, "the priority-5 gang was never rejected")
+            plugin.run_pending_once()
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        evicted = plugin.maybe_preempt_gang("default/hi", gang)
+        out["preempt"] = {"evicted": evicted, "ms": (time.perf_counter() - t0) * 1e3}
+    finally:
+        churn.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["churn"] = {"added": churn.added, "deleted": churn.deleted, "errors": churn.errors}
+
+    # the oracle on the final state: the churn's pods all deleted, the
+    # reconciles settled
+    out["settle_after_s"] = settle(plugin)
+    t0 = time.perf_counter()
+    final = plugin.pre_filter_batch()
+    n_probe, mismatches, tally, _ = oracle_check(plugin, final, ORACLE_SAMPLE, SEED + 11)
+    out["final"] = {"ms": (time.perf_counter() - t0) * 1e3, "verdicts": len(final["schedulable"]),
+                    "errors": len(final["errors"]), "pods": len(plugin.listers.pods.list()),
+                    "oracle_sample": n_probe, "oracle_mismatches": mismatches, "tally": tally,
+                    "routes": dict(dm.last_batch_routes), "breaker": dm.breaker_state()}
+    out["launches"] = kernel_launch_counts()
+    plugin.stop()
+    return out
+
+
+def drive_armed(card: str) -> dict:
+    """The ``[armed]`` phase: ``chip_smoke.py --armed-child`` over
+    ARMED_CLUSTER in a child interpreter (its own session, ARMED_ENV, its
+    stderr in ARMED_ROOT/armed.log, killed whole past ARMED_DEADLINE_S).
+    Prints each race report on lines of its own, then one ``[armed]``
+    line; fails unless every kernel of the path launched in the phase and
+    nothing was reported."""
+    import signal
+
+    shutil.rmtree(ARMED_ROOT, ignore_errors=True)
+    ARMED_ROOT.mkdir(parents=True)
+    env = {**os.environ, **ARMED_ENV,
+           "PYTHONPATH": str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    log = ARMED_ROOT / "armed.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--armed-child",
+             *map(str, ARMED_CLUSTER)],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env, start_new_session=True,
+        )
+        try:
+            stdout, _ = proc.communicate(timeout=ARMED_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, _ = proc.communicate()
+    child_s = time.perf_counter() - t0
+    lines = [x for x in stdout.splitlines() if x.startswith(ARMED_REPORT)]
+    if proc.returncode != 0 or not lines:
+        print("[armed] log tail:\n" + "".join(
+            log.read_text(errors="replace").splitlines(keepends=True)[-60:]), flush=True)
+        check(False, f"the armed child exited {proc.returncode} "
+                     f"with {'a' if lines else 'no'} report")
+    s = json.loads(lines[-1][len(ARMED_REPORT):])
+    for r in s["race_reports"]:
+        print("[armed] race report:\n" + r, flush=True)
+    for e in s["lock_errors"] + s["thread_errors"] + s["stale_verdicts"]:
+        print("[armed] error: " + e, flush=True)
+    launches = s["launches"]
+    say("armed", cluster=json.dumps(s["cluster"]), build_s=f"{s['build_s']:.3f}",
+        settle_s=f"{s['settle_s']:.3f}", phase_s=f"{s['phase_s']:.3f}",
+        settle_after_s=f"{s['settle_after_s']:.3f}", child_s=f"{child_s:.3f}",
+        launches=json.dumps(launches), lock_violations=len(s["lock_errors"]),
+        thread_errors=len(s["thread_errors"]), race_reports=len(s["race_reports"]),
+        race_waivers_fired=json.dumps(s["race_waivers_fired"]),
+        stale_verdicts=len(s["stale_verdicts"]),
+        stale_quiet=s["single"]["quiet"]["stale_verdicts"],
+        stale_churned=s["single"]["churned"]["stale_verdicts"],
+        epoch_checks_quiet=s["single"]["quiet"]["cache_hits"],
+        epoch_checks_churned=s["single"]["churned"]["cache_hits"],
+        repeat_differs_churned=s["single"]["churned"]["repeat_differs"],
+        oracle_sample=s["final"]["oracle_sample"],
+        oracle_mismatches=s["final"]["oracle_mismatches"],
+        batches=json.dumps(s["batches"]), tick=json.dumps(s["tick"]),
+        single=json.dumps(s["single"]), gang=json.dumps(s["gang"]),
+        preempt=json.dumps(s["preempt"]), churn=json.dumps(s["churn"]),
+        final=json.dumps(s["final"]), main_lock=s["main_lock"], card=repr(card))
+    for name in KERNEL_COUNTERS:
+        check(launches[name] > 0, f"{name} was not launched in the armed phase")
+    check(not s["lock_errors"], f"{len(s['lock_errors'])} lock-order or lock-assertion errors")
+    check(not s["thread_errors"], f"{len(s['thread_errors'])} uncaught thread exceptions")
+    check(not s["race_reports"], f"{len(s['race_reports'])} unwaived race reports")
+    check(not s["stale_verdicts"], f"{len(s['stale_verdicts'])} stale verdicts")
+    check(not s["churn"]["errors"], f"the churn failed: {s['churn']['errors'][:3]}")
+    check(s["churn"]["added"] > 0 and s["churn"]["added"] == s["churn"]["deleted"],
+          f"the churn added {s['churn']['added']} and deleted {s['churn']['deleted']} pods")
+    n_pods = s["cluster"][0]
+    for b in s["batches"] + [s["tick"], s["final"]]:
+        check(b["verdicts"] >= n_pods and b["errors"] == 0, f"armed verdicts missing: {b}")
+    check(s["tick"]["mesh"] == [1, 1], f"the armed tick ran on mesh {s['tick']['mesh']}")
+    quiet, churned = s["single"]["quiet"], s["single"]["churned"]
+    check(quiet["repeat_differs"] == 0 and quiet["cache_hits"] > 0,
+          f"quiet single-pod PreFilters: {quiet}")
+    check(churned["epoch_moved"] > 0 and churned["stale_verdicts"] == 0,
+          f"churned single-pod PreFilters: {churned}")
+    check(s["gang"]["answered"] == s["gang"]["gangs"], f"gang_check_groups: {s['gang']}")
+    check(s["preempt"]["evicted"] is True, "the armed maybe_preempt_gang evicted nothing")
+    check(s["final"]["oracle_sample"] >= 2000 and s["final"]["oracle_mismatches"] == 0,
+          f"{s['final']['oracle_mismatches']} final batch verdicts differ from the host oracle")
+    check(s["final"]["breaker"] == "closed", f"breaker is {s['final']['breaker']}")
+    shutil.rmtree(ARMED_ROOT, ignore_errors=True)
+    return dict(launches=launches, build_s=s["build_s"], phase_s=s["phase_s"], child_s=child_s)
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -3275,6 +3676,11 @@ def run() -> int:
     say("scenarios", step="summary", launches=json.dumps(scenario_launches),
         wall_s=json.dumps({run: round(r["wall_s"], 3) for run, r in scenarios.items()}))
 
+    mark("armed")
+    # -- the main path with the analyzer's runtime twins armed, in a fresh
+    # interpreter
+    armed = drive_armed(card)
+
     say("phases", seconds=json.dumps(phase_seconds()))
 
     kernels = {"kernels": [{
@@ -3289,6 +3695,7 @@ def run() -> int:
         "daemon_launches": daemon["launches"]["check_dense"],
         "shards_launches": shard_launches["check_dense"],
         "scenarios_launches": scenario_launches["check_dense"],
+        "armed_launches": armed["launches"]["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -3314,6 +3721,7 @@ def run() -> int:
         "daemon_launches": daemon["scheduler_launches"]["victim_select"],
         "shards_launches": shard_launches["victim_select"],
         "scenarios_launches": scenario_launches["victim_select"],
+        "armed_launches": armed["launches"]["victim_select"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -3341,6 +3749,8 @@ def run() -> int:
         "shards_pack_launches": shard_launches["pack_gather_rows"],
         "scenarios_launches": scenario_launches["check_gather"],
         "scenarios_pack_launches": scenario_launches["pack_gather_rows"],
+        "armed_launches": armed["launches"]["check_gather"],
+        "armed_pack_launches": armed["launches"]["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,
@@ -3392,6 +3802,8 @@ def main() -> int:
             return scenario_child(*sys.argv[2:4])
         if sys.argv[1:2] == ["--grid-rank"]:
             return grid_rank_child(*sys.argv[2:9])
+        if sys.argv[1:2] == ["--armed-child"]:
+            return armed_child(*map(int, sys.argv[2:6]))
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -138,7 +138,7 @@ class PreemptionCoordinator:
     # -- pod-event tracking (ages + readmit churn) -------------------------
 
     def _tracking_enabled(self) -> bool:
-        gen = self.policy.generation
+        gen = self.policy.current_generation()
         cached_gen, countdown, enabled = self._enabled_cache
         if cached_gen == gen and countdown > 0:
             self._enabled_cache = (cached_gen, countdown - 1, enabled)

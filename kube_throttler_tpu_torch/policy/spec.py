@@ -139,6 +139,13 @@ class PolicyEngine:
         with self._lock:
             return self._specs
 
+    def current_generation(self) -> int:
+        """``generation`` read under the engine's lock: the pod-event path
+        reads it on the thread that applies events while ``set_specs``
+        writes it on another."""
+        with self._lock:
+            return self.generation
+
     def active(self, now: Optional[datetime] = None) -> PolicySpec:
         """The FIRST active spec (first-wins whole-replacement, the
         override discipline), else the built-in default. A spec whose

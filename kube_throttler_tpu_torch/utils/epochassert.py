@@ -132,12 +132,15 @@ def check_hit(plugin, pod, key: tuple, esum: int, cached) -> None:
         return  # transient oracle error — not coherence evidence
     if _normalize(fresh) == _normalize(cached):
         return
+    current = plugin.device_manager.verdict_fingerprint(pod)
+    if current != (key, esum):
+        # a covered mutation bumped its epoch between the lookup and the
+        # recompute: the recompute saw newer state, not a missed bump
+        return
     with _lock:
         if key in _fired_keys:
             return  # first observation already reported for this key
         _fired_keys.add(key)
-        current = plugin.device_manager.verdict_fingerprint(pod)
-        cur_esum = current[1] if current is not None else None
         sites = "\n".join(
             f"    {f}:{ln} in {fn}()" for f, ln, fn in _recent_mutations
         ) or "    <none recorded — mutation predates arming or bypassed _note_thr_col>"
@@ -146,8 +149,7 @@ def check_hit(plugin, pod, key: tuple, esum: int, cached) -> None:
             "unchanged epoch sum (a verdict-affecting mutation skipped "
             "its bump)\n"
             f"  key={key!r}\n"
-            f"  cached esum={esum} current esum={cur_esum}"
-            f"{' (UNCHANGED)' if cur_esum == esum else ''}\n"
+            f"  cached esum={esum} current esum={esum} (UNCHANGED)\n"
             f"  cached verdict: code={cached.code} reasons={cached.reasons!r}\n"
             f"  oracle verdict: code={fresh.code} reasons={fresh.reasons!r}\n"
             "  recent covered mutations (the bump that should have "

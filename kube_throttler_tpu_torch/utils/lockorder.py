@@ -32,6 +32,11 @@ created through :func:`make_lock`/:func:`make_rlock` is wrapped so that:
 The edge graph is cumulative across the process: two threads never need
 to collide in time for an inversion to be caught — each order only has
 to be *observed* once.
+
+Every violation raised is also kept, in order, in :func:`reports`, as
+``utils/racedetect.py`` and ``utils/epochassert.py`` keep theirs: a
+worker loop that catches and logs one still leaves it there for a
+harness to read.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ __all__ = [
     "reset_graph",
     "set_hold_budget",
     "clear_hold_budgets",
+    "reports",
 ]
 
 
@@ -74,6 +80,24 @@ class LockAssertionError(RuntimeError):
 
 class LockHoldBudgetExceeded(LockAssertionError):
     """A lock was held longer than its configured hold-time budget."""
+
+
+# every violation raised, as "<class>: <message>"
+_reports_lock = threading.Lock()
+_reports: List[str] = []
+
+
+def _reported(exc: RuntimeError) -> RuntimeError:
+    with _reports_lock:
+        _reports.append(f"{type(exc).__name__}: {exc}")
+    return exc
+
+
+def reports() -> List[str]:
+    """Every lock-order, lock-assertion and hold-budget violation raised
+    in this process so far, caught or not."""
+    with _reports_lock:
+        return list(_reports)
 
 
 def lock_assert_enabled() -> bool:
@@ -240,14 +264,14 @@ def _note_acquisition(lock: "_InstrumentedLock") -> None:
                     ),
                     "<site not recorded>",
                 )
-                raise LockOrderViolation(
+                raise _reported(LockOrderViolation(
                     f"lock-order inversion: acquiring '{b}' while holding "
                     f"'{a}', but the opposite order '{b}' -> ... -> '{a}' "
                     f"was previously observed.\n--- current acquisition "
                     f"(thread {threading.current_thread().name}) ---\n"
                     f"{_site()}--- first sighting of the opposite order ---\n"
                     f"{prior}"
-                )
+                ))
             s.add(b)
             _edge_sites[(a, b)] = _site()
 
@@ -276,10 +300,10 @@ class _InstrumentedLock:
         me = threading.get_ident()
         if self._owner == me:
             if not self.reentrant:
-                raise LockOrderViolation(
+                raise _reported(LockOrderViolation(
                     f"non-reentrant lock '{self.name}' re-acquired by its "
                     f"holder (guaranteed deadlock)\n{_site()}"
-                )
+                ))
             self._count += 1
             return True
         _note_acquisition(self)
@@ -295,10 +319,10 @@ class _InstrumentedLock:
     def release(self) -> None:
         me = threading.get_ident()
         if self._owner != me:
-            raise LockAssertionError(
+            raise _reported(LockAssertionError(
                 f"lock '{self.name}' released by a thread that does not "
                 f"hold it\n{_site()}"
-            )
+            ))
         self._count -= 1
         if self._count == 0:
             held_for = time.monotonic() - self._t0
@@ -312,10 +336,10 @@ class _InstrumentedLock:
             # over-hold, never extend it (or wedge the other threads)
             budget = _budget_for(self.name)
             if budget is not None and held_for > budget:
-                raise LockHoldBudgetExceeded(
+                raise _reported(LockHoldBudgetExceeded(
                     f"lock '{self.name}' held {held_for * 1e3:.1f}ms, over "
                     f"its {budget * 1e3:.1f}ms hold budget\n{_site()}"
-                )
+                ))
 
     def __enter__(self) -> "_InstrumentedLock":
         self.acquire()
@@ -335,9 +359,9 @@ class _InstrumentedLock:
     def _release_save(self):
         me = threading.get_ident()
         if self._owner != me:
-            raise LockAssertionError(
+            raise _reported(LockAssertionError(
                 f"cond.wait() on '{self.name}' without holding it"
-            )
+            ))
         saved = self._count
         self._count = 0
         self._owner = None
@@ -415,10 +439,10 @@ def assert_held(lock, what: str = "") -> None:
     owned = held_by_me(lock)
     if owned is False:
         name = getattr(lock, "name", repr(lock))
-        raise LockAssertionError(
+        raise _reported(LockAssertionError(
             f"{what or 'a _locked helper'} requires lock '{name}' held by "
             f"the calling thread\n{_site()}"
-        )
+        ))
 
 
 def _guard_lock_names(spec) -> Tuple[str, ...]:
@@ -465,11 +489,11 @@ def guard_attrs(cls):
                     ok = True
                     break
             if not ok:
-                raise LockAssertionError(
+                raise _reported(LockAssertionError(
                     f"guarded attribute '{name}' of {type(self).__name__} "
                     f"rebound without holding "
                     f"{' or '.join(guards[name])}\n{_site()}"
-                )
+                ))
         orig_setattr(self, name, value)
 
     @functools.wraps(orig_init)

@@ -27,6 +27,7 @@ from kube_throttler_tpu_torch.api.types import (
 from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.ops.check import STATUS_NAMES
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _throttle(name, labels, **threshold):

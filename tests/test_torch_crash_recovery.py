@@ -40,6 +40,7 @@ from kube_throttler_tpu_torch.engine.snapshot import (
 from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.utils.clock import FakeClock
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -33,6 +33,7 @@ import kube_throttler_tpu.cli as jcli
 import kube_throttler_tpu_torch.cli as tcli
 
 from tests.torch_daemon_cases import SCHEDULER, THROTTLER, manifests, pod_keys
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 SERVE = ["serve", "--name", THROTTLER, "--target-scheduler-name", SCHEDULER,
          "--port", "0"]

@@ -18,6 +18,7 @@ from kube_throttler_tpu_torch.api.types import (
 from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.plugin.framework import StatusCode
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _throttle(name="t1", cpu="200m"):

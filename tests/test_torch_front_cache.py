@@ -21,6 +21,7 @@ from kube_throttler_tpu_torch.api.types import (
     ThrottleSpec,
 )
 from kube_throttler_tpu_torch.plugin.framework import StatusCode
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _throttle(name="t1", cpu="200m", grp="a", overrides=()):

@@ -52,6 +52,7 @@ _spec.loader.exec_module(hatest)
 # the workload/oracle helpers live in the shared tools/harness_torch.py;
 # keep the historical local names the fixtures below use
 from types import SimpleNamespace  # noqa: E402
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 crashtest = SimpleNamespace(
     _throttle=hatest.harness.make_throttle,

@@ -52,6 +52,7 @@ from kube_throttler_tpu_torch.scenarios.trace import (
     canonical_fault_plan,
     serialize_trace,
 )
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 # ---------------------------------------------------------------- mutators

@@ -19,6 +19,7 @@ from kube_throttler_tpu_torch.utils.leaderelect import (
     HttpLeaseElector,
     default_lease_path,
 )
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def test_exclusion_and_handoff(tmp_path):

@@ -20,6 +20,7 @@ from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.metrics import Registry, ThrottleMetricsRecorder
 from kube_throttler_tpu_torch.plugin import KubeThrottler, RecordingEventRecorder, decode_plugin_args
 from kube_throttler_tpu_torch.server import ThrottlerHTTPServer
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 class TestMetrics:

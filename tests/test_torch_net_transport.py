@@ -38,6 +38,7 @@ from kube_throttler_tpu_torch.sharding.ipc import (
     send_frame,
 )
 from kube_throttler_tpu_torch.sharding.worker import ShardCore, serve, serve_tcp
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def wait_until(pred, timeout=10.0, interval=0.02, msg="condition"):

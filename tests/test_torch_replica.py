@@ -35,6 +35,7 @@ from kube_throttler_tpu_torch.engine.snapshot import SnapshotManager
 from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.server import ThrottlerHTTPServer
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _wait(predicate, timeout=10.0, interval=0.02):

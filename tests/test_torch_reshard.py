@@ -47,6 +47,7 @@ from kube_throttler_tpu_torch.sharding.ring import (
     stable_hash64,
 )
 from kube_throttler_tpu_torch.sharding.worker import ShardCore
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 KEYS = [f"key-{i}" for i in range(2000)]
 

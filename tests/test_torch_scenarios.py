@@ -23,6 +23,7 @@ from kube_throttler_tpu_torch.scenarios.trace import (
     serialize_trace,
     trace_sha256,
 )
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 # ---------------------------------------------------------------- traces

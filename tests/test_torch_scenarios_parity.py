@@ -37,6 +37,7 @@ from kube_throttler_tpu.scenarios.corpus import load_regressions as j_load_regre
 from kube_throttler_tpu_torch.scenarios.corpus import SCENARIOS as T_SCENARIOS
 from kube_throttler_tpu_torch.scenarios.corpus import corpus as t_corpus
 from kube_throttler_tpu_torch.scenarios.corpus import load_regressions as t_load_regressions
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 # the hunt package re-exports its functions ``mutate`` and ``shrink`` under
 # the names of their modules, so the modules come through importlib

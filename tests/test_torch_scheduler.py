@@ -20,6 +20,7 @@ from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.plugin.framework import RecordingEventRecorder
 from kube_throttler_tpu_torch.scheduler import Node, Scheduler
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _setup(nodes=None, use_device=False):

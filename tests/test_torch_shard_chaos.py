@@ -30,6 +30,7 @@ from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin.framework import StatusCode
 from kube_throttler_tpu_torch.sharding.front import AdmissionFront
 from kube_throttler_tpu_torch.sharding.supervisor import ShardSupervisor
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 N_SHARDS = 2
 N_GROUPS = 6

@@ -52,6 +52,7 @@ from kube_throttler_tpu_torch.sharding.ring import (
     stable_hash64,
 )
 from kube_throttler_tpu_torch.sharding.worker import ShardCore
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def make_cluster_throttle(name, labels, threshold=None, accel=()):

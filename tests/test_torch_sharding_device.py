@@ -39,6 +39,7 @@ from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.sharding.front import AdmissionFront
 from kube_throttler_tpu_torch.sharding.ipc import LocalShard
 from kube_throttler_tpu_torch.sharding.worker import ShardCore
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 N_THROTTLES = 64  # one per label group; > 16 a shard puts its kind on the sparse route
 HOT_GROUPS = 6  # most pods land in the tight low-numbered groups

@@ -41,6 +41,7 @@ from kube_throttler_tpu_torch.sharding.shmring import (
     sweep_segments,
 )
 from kube_throttler_tpu_torch.sharding.supervisor import ShardSupervisor
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 pytestmark = pytest.mark.skipif(
     not shm_available(), reason="POSIX shared memory unavailable"

@@ -17,6 +17,7 @@ from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.metrics import Registry
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.utils import tracing
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 
 def _plugin(use_device=False):

@@ -57,6 +57,7 @@ from kube_throttler_tpu_torch.version import (
     min_reader_version,
     negotiate,
 )
+from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
