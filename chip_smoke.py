@@ -84,7 +84,17 @@ second a verdict-cache hit that the epoch assassin recomputes), a
 ``gang_check_groups`` and a ``maybe_preempt_gang``; every kernel must
 launch in it, and no lock-order or lock-assertion error, uncaught thread
 exception, race report or stale verdict may occur; then, the churn
-stopped, one more batch is held against the host oracle. One line per
+stopped, one more batch is held against the host oracle. Then
+``[props]``: the port's property strategies (``tests/torch_props.py``)
+under Hypothesis, derandomized, through every kernel on the card, each
+drawn input held against the kernel's plain version (single cells also
+against the ordered 4-state oracle, victim problems also against the
+sequential host oracle), over a grid of state shapes with int64
+extremes, gather cols past both ends and victim problems on each of the
+kernel's routes. Last, ``[soak]``: the differential soak's churn
+(``tests/torch_soak.py``) per seed, its device stack on the card and its
+host stack on the CPU, without the verdict cache, every checkpoint also
+holding the two stacks' ``pre_filter_batch`` equal. One line per
 phase; then one ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -259,6 +269,28 @@ ARMED_CHURNED_GAP_S = 0.02
 ARMED_DEADLINE_S = 600.0
 ARMED_ROOT = HERE / "build" / "armed-smoke"
 ARMED_REPORT = "ARMED_REPORT "
+# the props phase: Hypothesis properties over the port's property strategies
+# (tests/torch_props.py), run on the card with derandomize=True, database=None
+# and deadline=None, each with its max_examples: (property, kernel, examples)
+PROPS = (
+    ("single_cell", "check_dense", 200),
+    ("dense_states", "check_dense", 100),
+    ("gather_states", "check_gather", 200),
+    ("victim_problems", "victim_select", 150),
+    ("victim_padding", "victim_select", 50),
+    ("victim_warp", "victim_select", 24),
+    ("victim_ring", "victim_select", 24),
+    ("victim_wide_regs", "victim_select", 24),
+    ("victim_wide_smem", "victim_select", 24),
+    ("victim_wide_device", "victim_select", 24),
+)
+PROPS_BUDGET_S = 60.0
+# the soak phase: the differential soak's churn (tests/torch_soak.py) with the
+# device stack on the card and the host stack on the CPU, without the verdict
+# cache: its pinned seeds, then 4 onward, SOAK_MAX_SEEDS in all, cut to fit
+# SOAK_BUDGET_S (the pinned seeds always run)
+SOAK_MAX_SEEDS = 32
+SOAK_BUDGET_S = 90.0
 # the launch counters every kernel wrapper keeps (metrics.kernel_launch_counts)
 KERNEL_COUNTERS = ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
 # kernel instantiations ptxas must report per source (check_gather: 8
@@ -3377,6 +3409,191 @@ def drive_armed(card: str) -> dict:
     return dict(launches=launches, build_s=s["build_s"], phase_s=s["phase_s"], child_s=child_s)
 
 
+def property_helpers():
+    """``tests/torch_props.py`` and ``tests/torch_soak.py`` of this
+    checkout, imported with ``tests/`` on ``sys.path`` (they import its
+    ``torch_gather_cases`` by name); neither imports pytest's conftest."""
+    tests = str(HERE / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_props
+    import torch_soak
+
+    return torch_props, torch_soak
+
+
+def run_property(name: str, strategy, body, max_examples: int) -> dict:
+    """Hypothesis over ``strategy`` (derandomized, no database, no
+    deadline): ``body(*drawn)`` returns what differed, and any difference
+    fails the example, so Hypothesis shrinks it. → examples run (valid
+    ones), mismatching examples, launches and seconds; on a failure the
+    failing example is printed in full and the smoke fails."""
+    from hypothesis import given, settings
+
+    from kube_throttler_tpu_torch.metrics import kernel_launch_counts
+
+    seen = {"examples": 0, "mismatches": 0, "failing": None}
+
+    @settings(max_examples=max_examples, derandomize=True, database=None, deadline=None)
+    @given(strategy)
+    def prop(drawn):
+        bad = body(*drawn)
+        seen["examples"] += 1
+        if bad:
+            seen["mismatches"] += 1
+            seen["failing"] = (drawn, bad)
+            raise AssertionError("; ".join(bad))
+
+    before, t0 = kernel_launch_counts(), time.perf_counter()
+    try:
+        prop()
+    except Exception as e:
+        if seen["failing"] is not None:
+            drawn, bad = seen["failing"]
+            say("props", property=name, failing_example=repr(drawn), differs=json.dumps(bad))
+        raise SmokeFailure(f"[props] {name}: {type(e).__name__}: {e}") from e
+    after = kernel_launch_counts()
+    return dict(examples=seen["examples"], mismatches=seen["mismatches"],
+                seconds=time.perf_counter() - t0,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def drive_props(device: str = "cuda") -> dict:
+    """The ``[props]`` phase: each property of PROPS through the kernels on
+    ``device``, each drawn input held against the kernel's plain version
+    (and the single cell against the ordered 4-state oracle, the victim
+    problems against the sequential host oracle). One line per property
+    and one per kernel: examples, mismatches (must be 0), launches (must
+    be > 0 on the card); the victim problems must reach each route of the
+    kernel's launch shape (M <= 64, 64 < M <= 7256, and past 7256 with
+    remaining's spill in registers, shared and device memory); the phase
+    must end within PROPS_BUDGET_S."""
+    from hypothesis import strategies as st
+
+    tp, _ = property_helpers()
+    routes: Counter = Counter()
+
+    def victim_routes(contrib, deficit, cap, route):
+        launched = tp.victim_route(contrib.shape[1])
+        routes[launched] += 1
+        bad = [] if launched == route else [f"drawn for {route}, launched {launched}"]
+        return bad + tp.victim_mismatches(contrib, deficit, cap, device)
+
+    bodies = {
+        "single_cell": (st.tuples(tp.amounts(), tp.amounts(), tp.amounts(), tp.pod_requests(),
+                                  st.booleans(), st.booleans()),
+                        lambda *a: tp.single_cell_mismatches(*a, device)),
+        "dense_states": (st.tuples(tp.clusters()), lambda c: tp.dense_mismatches(c, device)),
+        "gather_states": (st.tuples(tp.clusters()), lambda c: tp.gather_mismatches(c, device)),
+        "victim_problems": (st.tuples(tp.problems()),
+                            lambda p: tp.victim_mismatches(*p, device)),
+        "victim_padding": (st.tuples(tp.problems(), st.integers(min_value=0, max_value=8)),
+                           lambda p, pad: tp.victim_padding_mismatches(*p, pad, device)),
+        **{f"victim_{route}": (tp.wide_problems(route), victim_routes)
+           for route in tp.VICTIM_ROUTES},
+    }
+    t0 = time.perf_counter()
+    per_kernel: dict = {}
+    for name, kernel, examples in PROPS:
+        strategy, body = bodies[name]
+        r = run_property(name, strategy, body, examples)
+        say("props", property=name, kernel=kernel, examples=r["examples"],
+            mismatches=r["mismatches"], seconds=f"{r['seconds']:.3f}",
+            launches=json.dumps(r["launches"]))
+        k = per_kernel.setdefault(kernel, {"examples": 0, "mismatches": 0,
+                                           "launches": Counter()})
+        k["examples"] += r["examples"]
+        k["mismatches"] += r["mismatches"]
+        k["launches"].update(r["launches"])
+    seconds = time.perf_counter() - t0
+    out = {}
+    for kernel, k in per_kernel.items():
+        own = ("check_gather", "pack_gather_rows") if kernel == "check_gather" else (kernel,)
+        launches = {name: k["launches"][name] for name in own}
+        say("props", kernel=kernel, examples=k["examples"], mismatches=k["mismatches"],
+            launches=json.dumps(launches),
+            **({"victim_routes": json.dumps(dict(routes))} if kernel == "victim_select" else {}))
+        check(k["mismatches"] == 0, f"[props] {kernel} disagreed on {k['mismatches']} examples")
+        if device == "cuda":
+            for name, n in launches.items():
+                check(n > 0, f"[props] {name} was not launched")
+        out[kernel] = dict(examples=k["examples"], launches=launches)
+    check(set(routes) == set(tp.VICTIM_ROUTES), f"[props] victim routes drawn: {dict(routes)}")
+    say("props", step="summary", seconds=f"{seconds:.3f}", budget_s=PROPS_BUDGET_S)
+    check(seconds <= PROPS_BUDGET_S, f"[props] took {seconds:.1f} s of {PROPS_BUDGET_S} s")
+    return dict(kernels=out, seconds=seconds)
+
+
+def soak_seeds() -> list:
+    """The pinned seeds, then 4 onward: SOAK_MAX_SEEDS in all."""
+    _, ts = property_helpers()
+    rest = (s for s in range(4, 10 * SOAK_MAX_SEEDS) if s not in ts.PINNED_SEEDS)
+    return (list(ts.PINNED_SEEDS) + list(rest))[:SOAK_MAX_SEEDS]
+
+
+def drive_soak(device: str = "cuda") -> dict:
+    """The ``[soak]`` phase: the differential soak's churn per seed with the
+    device stack on ``device`` and the host stack on the CPU, without the
+    verdict cache (so that every batch reaches the kernels); at every
+    checkpoint each pod's ``pre_filter`` and each (Cluster)Throttle's
+    status must agree, and the device stack's ``pre_filter_batch`` over
+    all pods must equal the host stack's. Seeds past the pinned ones are
+    cut, with the cut printed, once the next would cross SOAK_BUDGET_S. A
+    divergence ends the phase: its line counts it and the smoke fails."""
+    import logging
+
+    from kube_throttler_tpu_torch.metrics import kernel_launch_counts
+
+    _, ts = property_helpers()
+    seeds = soak_seeds()
+    saved = os.environ.get("KT_VERDICT_CACHE")
+    os.environ["KT_VERDICT_CACHE"] = "0"
+    # the stacks log every pod of a namespace not created yet, as the
+    # reference does; the soak compares outcomes, not logs
+    logging.disable(logging.CRITICAL)
+    before, t0 = kernel_launch_counts(), time.perf_counter()
+    ran, checkpoints, slowest, diverged = [], 0, 0.0, []
+    try:
+        for seed in seeds:
+            elapsed = time.perf_counter() - t0
+            if seed not in ts.PINNED_SEEDS and elapsed + slowest > SOAK_BUDGET_S:
+                break
+            s0 = time.perf_counter()
+            stacks = (ts._stack(True, device), ts._stack(False, "cpu"))
+            try:
+                checkpoints += ts.checkpoints(ts.churn(seed, stacks, batch=True))
+            except AssertionError as e:
+                diverged.append((seed, repr(e)))
+                break
+            finally:
+                for _, plugin, _ in stacks:
+                    plugin.stop()
+            ran.append(seed)
+            slowest = max(slowest, time.perf_counter() - s0)
+    finally:
+        logging.disable(logging.NOTSET)
+        if saved is None:
+            os.environ.pop("KT_VERDICT_CACHE", None)
+        else:
+            os.environ["KT_VERDICT_CACHE"] = saved
+    seconds = time.perf_counter() - t0
+    after = kernel_launch_counts()
+    launches = {k: after[k] - before[k] for k in ("check_gather", "pack_gather_rows",
+                                                   "check_dense")}
+    cut = [s for s in seeds if s not in ran and s not in dict(diverged)]
+    say("soak", seeds_run=len(ran), seeds=json.dumps(ran), checkpoints=checkpoints,
+        mismatches=len(diverged), launches=json.dumps(launches), seconds=f"{seconds:.3f}",
+        budget_s=SOAK_BUDGET_S, cut=len(cut), cut_seeds=json.dumps(cut))
+    if diverged:
+        seed, what = diverged[0]
+        raise SmokeFailure(f"[soak] seed {seed} diverged: {what}")
+    check(set(ts.PINNED_SEEDS) <= set(ran), "[soak] a pinned seed did not run")
+    if device == "cuda":
+        for name, n in launches.items():
+            check(n > 0, f"[soak] {name} was not launched")
+    return dict(seeds=ran, checkpoints=checkpoints, launches=launches, seconds=seconds, cut=cut)
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -3681,6 +3898,14 @@ def run() -> int:
     # interpreter
     armed = drive_armed(card)
 
+    mark("props")
+    # -- the property tests' strategies through every kernel on the card
+    props = drive_props()
+
+    mark("soak")
+    # -- the differential soak, its device stack on the card
+    soak = drive_soak()
+
     say("phases", seconds=json.dumps(phase_seconds()))
 
     kernels = {"kernels": [{
@@ -3696,6 +3921,9 @@ def run() -> int:
         "shards_launches": shard_launches["check_dense"],
         "scenarios_launches": scenario_launches["check_dense"],
         "armed_launches": armed["launches"]["check_dense"],
+        "props_launches": props["kernels"]["check_dense"]["launches"]["check_dense"],
+        "props_examples": props["kernels"]["check_dense"]["examples"],
+        "soak_launches": soak["launches"]["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -3722,6 +3950,8 @@ def run() -> int:
         "shards_launches": shard_launches["victim_select"],
         "scenarios_launches": scenario_launches["victim_select"],
         "armed_launches": armed["launches"]["victim_select"],
+        "props_launches": props["kernels"]["victim_select"]["launches"]["victim_select"],
+        "props_examples": props["kernels"]["victim_select"]["examples"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -3751,6 +3981,11 @@ def run() -> int:
         "scenarios_pack_launches": scenario_launches["pack_gather_rows"],
         "armed_launches": armed["launches"]["check_gather"],
         "armed_pack_launches": armed["launches"]["pack_gather_rows"],
+        "props_launches": props["kernels"]["check_gather"]["launches"]["check_gather"],
+        "props_pack_launches": props["kernels"]["check_gather"]["launches"]["pack_gather_rows"],
+        "props_examples": props["kernels"]["check_gather"]["examples"],
+        "soak_launches": soak["launches"]["check_gather"],
+        "soak_pack_launches": soak["launches"]["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,

@@ -1011,7 +1011,8 @@ class ShardCore:
                 if now - t0 >= self.prepare_ttl:
                     stale_gangs.append(group)
                     del self._pending_gangs[txn]
-            self.reaped_txns += len(stale_pods) + len(stale_gangs)
+            if stale_pods or stale_gangs:  # an idle pass writes nothing
+                self.reaped_txns += len(stale_pods) + len(stale_gangs)
         for pod in stale_pods:
             self.plugin.unreserve(pod)
         for group in stale_gangs:
@@ -1037,7 +1038,8 @@ class ShardCore:
                 if now - entry["t0"] >= self.prepare_ttl:
                     stale_in.append((handoff, entry))
                     del self._handoffs_in[handoff]
-            self.reaped_handoffs += len(stale_out) + len(stale_in)
+            if stale_out or stale_in:
+                self.reaped_handoffs += len(stale_out) + len(stale_in)
         for handoff in stale_out:
             self.range_fence.lift(handoff)
             logger.warning("shard %d: reaped orphaned outbound handoff %s",

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``kube_throttler_tpu_torch``, not
-``chip_smoke.py`` and not the ``tools/*_torch.py`` harnesses imports
+``chip_smoke.py``, not the ``tools/*_torch.py`` harnesses and not the
+``tests/torch_*.py`` helpers imports
 ``jax``, ``jaxlib`` or ``kube_throttler_tpu`` — at module level or inside
 a function — or names a ``kube_throttler_tpu.`` module in a string of its
 code (an argv such as ``-m kube_throttler_tpu.sharding.worker`` would run
@@ -25,6 +26,8 @@ def _sources():
                                           REPO / "gather_timing.py"]
     # the chaos harnesses' copies that drive the port
     files += sorted((REPO / "tools").glob("*_torch.py"))
+    # the test helpers the smoke imports on the card, and the tests' others
+    files += sorted((REPO / "tests").glob("torch_*.py"))
     assert len(files) > 40 and all(f.exists() for f in files)
     return files
 

@@ -15,9 +15,18 @@ covered mutation that landed, with its epoch bump, after the lookup. Its
 own criterion is a divergence at an unchanged epoch sum; under churn
 (the chip smoke's ``[armed]`` probes of the churned groups) a served hit
 could fail a correct stack. ``check_hit`` now re-reads the fingerprint
-after the recompute and reports only when it has not moved."""
+after the recompute and reports only when it has not moved.
+
+Fault (m): the shard worker's reaper (``ShardCore.reap_stale_txns`` and
+``reap_stale_handoffs``) rewrote ``reaped_txns`` and ``reaped_handoffs``
+on every pass, ``+= 0`` when it reaped nothing. A bare read of a counter
+between two passes (the sharding tests read ``core.reaped_txns``) then
+met a later idle write: a race report whose appearance hung on whether
+the reaper woke once more before the file's teardown. A pass now writes
+a counter only when it reaped something."""
 
 import threading
+import time
 
 import pytest
 
@@ -25,6 +34,7 @@ from kube_throttler_tpu_torch.api.pod import Namespace, make_pod
 from kube_throttler_tpu_torch.engine.store import Store
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.plugin.framework import StatusCode
+from kube_throttler_tpu_torch.sharding.worker import ShardCore
 from kube_throttler_tpu_torch.utils import epochassert, racedetect
 from tests.test_torch_epochassert import _plant_bump_free_flip, _stack
 
@@ -92,3 +102,31 @@ def test_a_missed_bump_is_still_a_stale_verdict(every_hit_checked):
     with pytest.raises(epochassert.StaleVerdict, match="UNCHANGED"):
         plugin.pre_filter(pod)
     assert len(epochassert.reports()) == 1
+
+
+def _on_reaper_thread(fn):
+    t = threading.Thread(target=fn, name="shard0-reaper")
+    t.start()
+    t.join()
+
+
+@pytest.mark.parametrize("counter", ["reaped_txns", "reaped_handoffs"])
+def test_reaper_counter_is_left_alone_by_a_pass_that_reaps_nothing(counter):
+    assert racedetect.enabled(), "the suite arms KT_RACE_DETECT"
+    core = ShardCore(0, 1, use_device=False, prepare_ttl=1000.0)
+    try:
+        core.store.create_namespace(Namespace("default"))
+        pod = make_pod("orphan", requests={"cpu": "100m"})
+        assert core.rpc("reserve_prepare", {"txn": "orphan", "pod": pod})[0]
+    finally:
+        core.stop()
+    core._reaper.join()  # its own first pass would come a second later
+    racedetect.reset()  # a qual reports once a process: forget earlier modules'
+    later = time.monotonic() + 2 * core.prepare_ttl
+    with racedetect.capture() as cap:
+        # the front died between prepare and commit: the reaper aborts it
+        _on_reaper_thread(lambda: core.reap_stale_txns(now=later))
+        seen = getattr(core, counter)  # bare, as the sharding tests read it
+        _on_reaper_thread(lambda: core.reap_stale_txns(now=later))  # idle
+    assert seen == (1 if counter == "reaped_txns" else 0)
+    assert [r.render() for r in cap.reports] == []
