@@ -1,7 +1,8 @@
 # Dev workflow targets (reference Makefile parity, minus Go/kind).
 PY ?= python
+TAG ?= latest
 
-.PHONY: test test-stress race-test crash-test ha-test reshard-test net-chaos shm-chaos upgrade-test scenario-test shard-scenario reshard-scenario preempt-scenario partition-scenario replica-scenario scenario-regression scenario-hunt scenario-hunt-smoke scenario-hunt-long scenario-hunt-nightly lint ci gen bench bench-quick walkthrough smoke serve clean native image dev-cluster dev-run dev-teardown
+.PHONY: test test-stress race-test crash-test ha-test reshard-test net-chaos shm-chaos upgrade-test scenario-test shard-scenario reshard-scenario preempt-scenario partition-scenario replica-scenario scenario-regression scenario-hunt scenario-hunt-smoke scenario-hunt-long scenario-hunt-nightly lint ci gen bench bench-quick walkthrough smoke serve clean native image image-gpu serve-gpu walkthrough-gpu dev-cluster dev-run dev-teardown
 
 native:          ## build the C++ selector row-match engine (auto-built on import too)
 	$(PY) -c "from kube_throttler_tpu.native import load; import sys; \
@@ -94,6 +95,16 @@ gen:             ## regenerate deploy/crd.yaml from the typed API model
 
 image:           ## container image for deploy/deployment.yaml (Dockerfile)
 	tools/build_image.sh
+
+image-gpu:       ## container image of the PyTorch/CUDA port for deploy/gpu/ (Dockerfile.gpu; TAG=latest)
+	docker build -f Dockerfile.gpu -t kube-throttler-gpu:$(TAG) .
+
+serve-gpu:       ## run the PyTorch/CUDA port's daemon on the card
+	$(PY) -m kube_throttler_tpu_torch.cli serve --name kube-throttler \
+		--target-scheduler-name my-scheduler --port 10259
+
+walkthrough-gpu: ## reference README walkthrough through the PyTorch/CUDA port, on the card
+	$(PY) examples/walkthrough_torch.py
 
 bench:           ## the five BASELINE.json configs (one JSON line on stdout)
 	$(PY) bench.py

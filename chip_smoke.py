@@ -94,7 +94,22 @@ extremes, gather cols past both ends and victim problems on each of the
 kernel's routes. Last, ``[soak]``: the differential soak's churn
 (``tests/torch_soak.py``) per seed, its device stack on the card and its
 host stack on the CPU, without the verdict cache, every checkpoint also
-holding the two stacks' ``pre_filter_batch`` equal. One line per
+holding the two stacks' ``pre_filter_batch`` equal. Last,
+``[deployed]``: the port as an operator installs it, the package copied
+as its wheel holds it into ``build/deployed-smoke/site`` and every child
+run there with that folder alone on ``PYTHONPATH`` and a fresh ``HOME``
+and ``XDG_CACHE_HOME``, over 2,000 pods, 200 Throttles and 8
+ClusterThrottles: (a) ``serve --kubeconfig --config`` (deploy/gpu/deployment.yaml's
+command) against a ``MockApiServer`` in this process, its batch, 200
+single-pod PreFilters and tick equal to an in-process plugin's, both batch
+kernels launched (its ``/metrics``), the three libraries built into the
+user cache and nothing new in the install tree but bytecode and the native
+engine; (b) the same daemon after ``python -m kube_throttler_tpu_torch.kernels
+--prebuild`` with no ``nvcc`` reachable, the same answers and an empty
+cache; (c) the TCP fleet of deploy/gpu/sharded-fleet.yaml on loopback (2
+workers on the card, a front that dials both), equal answers, each
+worker's ``stats`` on the card with its launches growing, and a worker
+SIGKILLed and restarted on its port until every verdict is back. One line per
 phase; then one ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -115,7 +130,11 @@ interpreters, one at a time, each in a session of its own that is killed
 whole if it outlives its deadline, with the sharded run's workers and the
 bad day's failover children under it; and the armed phase's child
 interpreter, in a session of its own that is killed whole if it outlives
-its deadline).
+its deadline; the deployed phase's children, one at a time but for the
+fleet's front and its 2 workers: a probe of the install, the two daemons,
+each stopped by SIGTERM or killed on failure, ``--prebuild`` with its
+three ``nvcc``, and the workers, killed with SIGKILL at the end or on
+failure).
 """
 
 from __future__ import annotations
@@ -291,6 +310,18 @@ PROPS_BUDGET_S = 60.0
 # SOAK_BUDGET_S (the pinned seeds always run)
 SOAK_MAX_SEEDS = 32
 SOAK_BUDGET_S = 90.0
+# the deployed phase: the port as an operator installs it (``Install``: the
+# package copied as its wheel holds it, children run with it alone on
+# PYTHONPATH) over cluster_objects(*DEPLOYED_CLUSTER): the remote-mode daemon
+# of deploy/gpu/deployment.yaml, the same daemon on prebuilt kernels with no nvcc,
+# and the TCP fleet of deploy/gpu/sharded-fleet.yaml with DEPLOYED_SHARDS workers;
+# DEPLOYED_SINGLE single-pod PreFilters each, every wait bounded by
+# DEPLOYED_DEADLINE_S
+DEPLOYED_CLUSTER = (2_000, 200, 50, N_CLUSTER)
+DEPLOYED_SINGLE = 200
+DEPLOYED_SHARDS = 2
+DEPLOYED_DEADLINE_S = 300.0
+DEPLOYED_ROOT = HERE / "build" / "deployed-smoke"
 # the launch counters every kernel wrapper keeps (metrics.kernel_launch_counts)
 KERNEL_COUNTERS = ("check_dense", "check_gather", "pack_gather_rows", "victim_select")
 # kernel instantiations ptxas must report per source (check_gather: 8
@@ -680,8 +711,9 @@ def start_ptxas_report(name: str):
     (process, scratch path, expected instantiations)."""
     from kube_throttler_tpu_torch import kernels
 
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / f"ptxas-report-{name}-{os.getpid()}.so"
+    out_dir = kernels.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"ptxas-report-{name}-{os.getpid()}.so"
     cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
            str(kernels.CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2051,19 +2083,25 @@ class Daemon:
     of this smoke: its output drained by a thread (and echoed to a log
     file), its port read from the serving line."""
 
-    def __init__(self, args, log: Path, deadline_s: float, env=None):
+    def __init__(self, args, log: Path, deadline_s: float, env=None, cwd=None):
         import queue
         import threading
 
         self.log = log
-        env = {**os.environ, **(env or {})}
-        env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+        if cwd is None:
+            env = {**os.environ, **(env or {})}
+            env["PYTHONPATH"] = str(HERE) + os.pathsep + env.get("PYTHONPATH", "")
+            cwd, named = HERE, ["--name", "kube-throttler", "--target-scheduler-name",
+                                "my-scheduler"]
+        else:
+            # an installed package (``Install``): ``env`` is whole, and the
+            # names come from ``--config`` as in the manifests
+            named = []
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", f"{PORT}.cli", "serve", "--name", "kube-throttler",
-             "--target-scheduler-name", "my-scheduler", "--host", "127.0.0.1",
+            [sys.executable, "-m", f"{PORT}.cli", "serve", *named, "--host", "127.0.0.1",
              "--port", "0", *args],
-            cwd=str(HERE), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            cwd=str(cwd), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )
         self.lines: "queue.Queue[str]" = queue.Queue()
@@ -3594,6 +3632,493 @@ def drive_soak(device: str = "cuda") -> dict:
     return dict(seeds=ran, checkpoints=checkpoints, launches=launches, seconds=seconds, cut=cut)
 
 
+# --------------------------------------------------------------- deployed
+
+
+def package_files(pkg: Path) -> list:
+    """The package's files as its wheel holds them, as paths relative to
+    the package's parent: everything but what is built where it runs
+    (bytecode, the prebuilt ``_kernels/`` and any ``.so``)."""
+    return sorted(
+        str(p.relative_to(pkg.parent)) for p in pkg.rglob("*")
+        if p.is_file() and p.suffix not in (".so", ".pyc")
+        and not {"__pycache__", "_kernels"} & set(p.relative_to(pkg).parts)
+    )
+
+
+class Install:
+    """The port as an operator installs it: the package copied into
+    ``root/site`` as its wheel holds it (``package_files``), with no
+    ``build/`` or ``pyproject.toml`` beside it. Its children run in
+    ``root`` with ``root/site`` alone on ``PYTHONPATH``, a fresh ``HOME``
+    and ``XDG_CACHE_HOME`` and the verdict cache off; ``runtime=True``
+    also takes every ``nvcc`` out of reach, as in the image's runtime
+    stage."""
+
+    def __init__(self, root: Path):
+        shutil.rmtree(root, ignore_errors=True)
+        self.root, self.site = root, root / "site"
+        self.home, self.cache = root / "home", root / "cache"
+        self.no_cuda = root / "no-cuda"
+        for d in (self.site, self.home, self.cache, self.no_cuda):
+            d.mkdir(parents=True)
+        self.files = package_files(HERE / PORT)
+        for rel in self.files:
+            (self.site / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy2(HERE / rel, self.site / rel)
+        self.kernel_cache = self.cache / "kube-throttler-gpu" / "kernels"
+        self.prebuilt = self.site / PORT / "_kernels"
+
+    def env(self, runtime: bool = False, **extra) -> dict:
+        env = {**os.environ, "PYTHONPATH": str(self.site), "HOME": str(self.home),
+               "XDG_CACHE_HOME": str(self.cache), "KT_VERDICT_CACHE": "0", **extra}
+        if runtime:
+            env["CUDA_HOME"] = str(self.no_cuda)
+            env["PATH"] = os.pathsep.join(
+                d for d in env.get("PATH", "").split(os.pathsep)
+                if d and not (Path(d) / "nvcc").exists())
+            check(shutil.which("nvcc", path=env["PATH"]) is None, "nvcc is still on PATH")
+        return env
+
+    def run(self, *args, runtime: bool = False, timeout: float = 300.0) -> str:
+        """``python args`` in the install's environment; its stdout, or a
+        failure with its output."""
+        proc = subprocess.run([sys.executable, *args], cwd=str(self.root),
+                              env=self.env(runtime), capture_output=True, text=True,
+                              timeout=timeout)
+        check(proc.returncode == 0,
+              f"{' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+        return proc.stdout
+
+    def listing(self) -> set:
+        return {str(p.relative_to(self.site)) for p in self.site.rglob("*") if p.is_file()}
+
+    def added(self, before: set) -> list:
+        """Files of the install tree that are not in ``before`` and are
+        neither bytecode nor the native selector engine: that one, the
+        package's own loader builds into its folder when it is writable,
+        as the JAX package's does."""
+        return sorted(
+            f for f in self.listing() - before
+            if "__pycache__" not in Path(f).parts and Path(f).name != "_ktnative.so")
+
+    def cached_kernels(self) -> list:
+        return sorted(p.name for p in self.kernel_cache.glob("*.so"))
+
+
+def deploy_config(root: Path) -> Path:
+    """``config.yaml`` of ``deploy/config.yaml``'s ConfigMap, written under
+    ``root``: the file the manifests mount at /etc/kube-throttler."""
+    import yaml
+
+    with open(HERE / "deploy" / "config.yaml") as f:
+        doc = yaml.safe_load(f)
+    path = root / "config.yaml"
+    path.write_text(doc["data"]["config.yaml"])
+    return path
+
+
+def status_view(store) -> dict:
+    """{kind: {key: (used, throttled)}} of a store's throttles."""
+    return {
+        "throttles": {t.key: (t.status.used.to_dict(), t.status.throttled.to_dict())
+                      for t in store.list_throttles()},
+        "clusterthrottles": {t.name: (t.status.used.to_dict(), t.status.throttled.to_dict())
+                             for t in store.list_cluster_throttles()},
+    }
+
+
+def served_status_view(daemon: Daemon) -> dict:
+    """``status_view`` of what a daemon's ``/v1/throttles`` and
+    ``/v1/clusterthrottles`` serve."""
+    view = {}
+    for kind in ("throttles", "clusterthrottles"):
+        code, items = daemon.get(f"/v1/{kind}")
+        check(code == 200, f"/v1/{kind} answered {code}")
+        view[kind] = {
+            "/".join(filter(None, (i["metadata"].get("namespace"), i["metadata"]["name"]))):
+            (i["status"]["used"], i["status"]["throttled"]) for i in items}
+    return view
+
+
+def wait_statuses(daemon: Daemon, want: dict, deadline_s: float) -> float:
+    """Seconds until the daemon serves the in-process statuses ``want``:
+    its reconcile (or its shards') has caught up with the cluster."""
+    t0 = time.perf_counter()
+    while True:
+        got = served_status_view(daemon)
+        if got == want:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > deadline_s:
+            bad = sum(got[k].get(n) != v for k in want for n, v in want[k].items())
+            raise SmokeFailure(f"{bad} served statuses never reached the in-process ones")
+        time.sleep(0.25)
+
+
+def deployed_reference(objects, device: str, seed: int) -> dict:
+    """The in-process plugin's answers on ``objects``: every batch verdict,
+    DEPLOYED_SINGLE seeded single-pod PreFilters, one tick, and the
+    statuses its reconcile wrote."""
+    from kube_throttler_tpu_torch.engine.store import Store
+    from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
+
+    store = Store()
+    # without the verdict cache, as the install's children run: the batch
+    # takes the device routes at this size
+    cache_env = os.environ.get("KT_VERDICT_CACHE")
+    os.environ["KT_VERDICT_CACHE"] = "0"
+    try:
+        plugin = KubeThrottler(
+            decode_plugin_args({"name": "kube-throttler", "targetSchedulerName": "my-scheduler"}),
+            store, use_device=True, device=device,
+        )
+    finally:
+        if cache_env is None:
+            del os.environ["KT_VERDICT_CACHE"]
+        else:
+            os.environ["KT_VERDICT_CACHE"] = cache_env
+    try:
+        load_cluster(store, objects)
+        plugin.run_pending_once()
+        verdicts = plugin.pre_filter_batch()["schedulable"]
+        routes = dict(plugin.device_manager.last_batch_routes)
+        keys = sorted(random.Random(seed).sample(
+            sorted(p.key for p in store.list_pods()), DEPLOYED_SINGLE))
+        answers = {k: status_json(plugin.pre_filter(store.get_pod(*k.split("/", 1))))
+                   for k in keys}
+        tick = plugin.full_tick_sharded(1)
+        statuses = status_view(store)
+    finally:
+        plugin.stop()
+    check(0 < sum(verdicts.values()) < len(verdicts), "the deployed cluster is one-sided")
+    check(routes == {"throttle": "sparse", "clusterthrottle": "dense"},
+          f"the deployed cluster's batch took the routes {routes}")
+    return dict(verdicts=verdicts, keys=keys, answers=answers, tick=tick, statuses=statuses,
+                routes=routes)
+
+
+def deployed_daemon(inst: Install, kubeconfig: Path, config: Path, ref: dict, device: str,
+                    label: str, runtime: bool = False) -> dict:
+    """``serve --kubeconfig --config`` from the install (deploy/gpu/deployment.yaml's
+    command): once its statuses are the in-process ones, 1 HTTP batch, the
+    DEPLOYED_SINGLE PreFilters and 1 tick, each equal to ``ref``; the
+    kernel launches its ``/metrics`` shows over them, returned."""
+    args = ["--kubeconfig", str(kubeconfig), "--config", str(config)]
+    if device != "cuda":
+        args += ["--device", device]
+    t_start = time.perf_counter()
+    daemon = Daemon(args, inst.root / f"{label}.log", DEPLOYED_DEADLINE_S,
+                    env=inst.env(runtime), cwd=inst.root)
+    try:
+        check(daemon.line(rf"device={device}"), f"the installed daemon does not serve on {device}")
+        settle_s = wait_statuses(daemon, ref["statuses"], DEPLOYED_DEADLINE_S)
+        m0 = scrape(daemon)
+        t0 = time.perf_counter()
+        code, batch = daemon.post("/v1/prefilter-batch")
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        check(code == 200, f"/v1/prefilter-batch answered {code}: {str(batch)[:300]}")
+        batch_differ = verdicts_differ(batch, ref["verdicts"])
+        single_differ = sum(daemon.post("/v1/prefilter", {"podKey": k})[1] != ref["answers"][k]
+                            for k in ref["keys"])
+        code, tick = daemon.post("/v1/tick", {"devices": 1})
+        check(code == 200, f"/v1/tick answered {code}: {str(tick)[:300]}")
+        tick_same = (tick["schedulable"] == ref["tick"]["schedulable"]
+                     and tick["used"] == ref["tick"]["used"] and tick["errors"] == [])
+        m1 = scrape(daemon)
+        launched = grown(m1["launches"], m0["launches"])
+        daemon.stop()
+    finally:
+        daemon.kill()
+    prewarmed = next((t for t, x in daemon.arrivals if "prewarmed" in x), -1.0)
+    say("deployed", part=label, seconds=f"{time.perf_counter() - t_start:.3f}",
+        spawn_to_ready_s=f"{daemon.ready_s:.3f}", prewarmed_at_s=f"{prewarmed:.3f}",
+        settle_s=f"{settle_s:.3f}", batch_ms=f"{batch_ms:.3f}",
+        verdicts=len(batch["schedulable"]), batch_differ=batch_differ,
+        single_pods=len(ref["keys"]), single_differ=single_differ, tick_same=tick_same,
+        launches=json.dumps(launched, sort_keys=True),
+        launches_total=json.dumps(m1["launches"], sort_keys=True), breaker=m1["breaker"],
+        serving=repr(daemon.line(r"serving on")))
+    check(batch_differ == 0, f"{label}: {batch_differ} batch verdicts differ")
+    check(single_differ == 0, f"{label}: {single_differ} single-pod answers differ")
+    check(tick_same, f"{label}: the tick differs from the in-process tick")
+    if device == "cuda":
+        check(m1["breaker"] == 0, f"{label}: the device breaker is in state {m1['breaker']}")
+        for name in ("check_dense", "check_gather"):
+            check(launched.get(name, 0) >= 1,
+                  f"{label}: {name} launched {launched.get(name)} times")
+    return launched
+
+
+class Worker:
+    """``python -m kube_throttler_tpu_torch.sharding.worker --listen`` from
+    the install, one shard of deploy/gpu/sharded-fleet.yaml's StatefulSet
+    (its data dir under the install's folder), started at once; ``wait``
+    returns once it has written its bound address to its port file."""
+
+    def __init__(self, inst: Install, sid: int, port: int, env: dict, device: str):
+        self.inst, self.sid = inst, sid
+        self.port_file = inst.root / f"shard-{sid}.port"
+        self.port_file.unlink(missing_ok=True)
+        self.log = inst.root / f"shard-{sid}.log"
+        argv = [sys.executable, "-m", f"{PORT}.sharding.worker", "--shard-id", str(sid),
+                "--shards", str(DEPLOYED_SHARDS), "--listen", f"127.0.0.1:{port}",
+                "--port-file", str(self.port_file), "--data-dir", str(inst.root / f"shard-{sid}")]
+        if device != "cuda":
+            argv += ["--device", device]
+        self.t0 = time.perf_counter()
+        with open(self.log, "a") as out:
+            self.proc = subprocess.Popen(argv, cwd=str(inst.root), env=env, stdout=out,
+                                         stderr=subprocess.STDOUT, start_new_session=True)
+
+    def wait(self) -> "Worker":
+        while not self.port_file.exists():
+            if (self.proc.poll() is not None
+                    or time.perf_counter() - self.t0 > DEPLOYED_DEADLINE_S):
+                self.kill()
+                tail = "".join(self.log.read_text(errors="replace").splitlines(True)[-30:])
+                raise SmokeFailure(
+                    f"shard {self.sid} never listened (rc {self.proc.poll()}):\n{tail}")
+            time.sleep(0.1)
+        self.port = int(self.port_file.read_text().strip().rpartition(":")[2])
+        self.ready_s = time.perf_counter() - self.t0
+        return self
+
+    def kill(self, sig=None) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL if sig is None else sig)
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def worker_stats(port: int, key: str) -> dict:
+    """A worker's ``stats`` RPC, dialed on a lane of its own. The first
+    request goes at epoch 0; once the front has resynced the worker that
+    is stale, and the refusal carries the worker's epoch, at which the
+    second request is answered. A probe moves no epoch and subscribes to
+    nothing; it adds one to the worker's refused frames."""
+    import socket
+    import threading
+
+    from kube_throttler_tpu_torch.sharding.ipc import read_frame, send_frame
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        rfile, lock, epoch = sock.makefile("rb"), threading.Lock(), 0
+        for rid in (1, 2):
+            send_frame(sock, lock, "req", rid, ("stats", None), epoch=epoch, key=key)
+            frame = read_frame(rfile, key=key)
+            check(frame is not None and frame[:2] == ("res", rid),
+                  f"the worker on {port} did not answer stats")
+            (ok, body), epoch = frame[2], frame[3]
+            if ok:
+                return body
+            check(rid == 1 and "FencedError" in str(body), f"stats refused: {body}")
+    raise AssertionError("unreachable")
+
+
+def post_objects(daemon: Daemon, objects) -> None:
+    """``cluster_objects``' objects POSTed to ``/v1/objects``, eight at a
+    time: the namespace, the throttles, then the pods."""
+    from kube_throttler_tpu_torch.api.serialization import object_to_dict
+
+    namespace, throttles, cluster_throttles, pods = objects
+
+    def post(obj):
+        code, body = daemon.post("/v1/objects", object_to_dict(obj))
+        check(code == 200, f"/v1/objects answered {code}: {body}")
+
+    post(namespace)
+    with ThreadPoolExecutor(8) as pool:
+        for group in (throttles + cluster_throttles, pods):
+            list(pool.map(post, group))
+
+
+def fleet_singles(front: Daemon, ref: dict) -> int:
+    """How many of the DEPLOYED_SINGLE PreFilters the front answers
+    otherwise than the in-process plugin (reasons compared as sets of
+    throttle names: the front composes one reason per shard)."""
+    return sum(normalized(front.post("/v1/prefilter", {"podKey": k})[1])
+               != normalized(ref["answers"][k]) for k in ref["keys"])
+
+
+def deployed_fleet(inst: Install, config: Path, objects, ref: dict, device: str,
+                   runtime: bool) -> dict:
+    """deploy/gpu/sharded-fleet.yaml on loopback, from the install: DEPLOYED_SHARDS
+    workers serving ``--listen`` and a front dialing each with
+    ``--shard-transport=tcp``, all three holding one ``KT_SHARD_AUTH_KEY``.
+    The objects are POSTed to the front; once its statuses are the
+    in-process ones, 1 batch and the single-pod PreFilters must equal the
+    in-process answers and each worker's ``stats`` must show its device
+    (and on the card its launches growing). Then worker 1 is SIGKILLed and
+    restarted on its port, and the batch is polled until every verdict is
+    back."""
+    import secrets
+
+    t_start = time.perf_counter()
+    key = secrets.token_hex(32)
+    env = inst.env(runtime, KT_SHARD_AUTH_KEY=key)
+    workers = [Worker(inst, sid, 0, env, device) for sid in range(DEPLOYED_SHARDS)]
+    front = None
+    try:
+        for w in workers:
+            w.wait()
+        front = Daemon(["--config", str(config), f"--shards={DEPLOYED_SHARDS}",
+                        "--shard-transport=tcp", "--shard-rpc-deadline=5.0",
+                        *(f"--shard-connect={w.sid}=127.0.0.1:{w.port}" for w in workers)],
+                       inst.root / "front.log", DEPLOYED_DEADLINE_S, env=env, cwd=inst.root)
+        check(front.line(r"device=remote"), "the front resolved a device of its own")
+        t0 = time.perf_counter()
+        post_objects(front, objects)
+        posted_s = time.perf_counter() - t0
+        settle_s = wait_statuses(front, ref["statuses"], DEPLOYED_DEADLINE_S)
+        s0 = {w.sid: worker_stats(w.port, key) for w in workers}
+        t1 = time.perf_counter()
+        code, batch = front.post("/v1/prefilter-batch")
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        check(code == 200, f"the front's batch answered {code}: {str(batch)[:300]}")
+        batch_differ = verdicts_differ(batch, ref["verdicts"])
+        single_differ = fleet_singles(front, ref)
+        s1 = {w.sid: worker_stats(w.port, key) for w in workers}
+        for sid, st in s1.items():
+            check(st["device"].startswith(device), f"shard {sid} runs on {st['device']}")
+        launched = check_shard_launches(s0, s1, 1) if device == "cuda" else {}
+        say("deployed", part="fleet", workers=DEPLOYED_SHARDS,
+            worker_ready_s=json.dumps([round(w.ready_s, 3) for w in workers]),
+            front_ready_s=f"{front.ready_s:.3f}", objects=sum(map(len, objects[1:])) + 1,
+            posted_s=f"{posted_s:.3f}", settle_s=f"{settle_s:.3f}", batch_ms=f"{batch_ms:.3f}",
+            verdicts=len(batch["schedulable"]), batch_differ=batch_differ,
+            single_pods=len(ref["keys"]), single_differ=single_differ,
+            devices=json.dumps({sid: st["device"] for sid, st in s1.items()}),
+            launches=json.dumps(launched, sort_keys=True),
+            serving=repr(front.line(r"serving on")))
+        check(batch_differ == 0, f"{batch_differ} of the fleet's batch verdicts differ")
+        check(single_differ == 0, f"{single_differ} of the fleet's single-pod answers differ")
+
+        # worker 1 SIGKILLed and restarted on its port: the front redials,
+        # bumps the epoch and resyncs it
+        port = workers[1].port
+        t_kill = time.perf_counter()
+        workers[1].kill()
+        workers[1] = Worker(inst, 1, port, env, device).wait()
+        polls = over_admitting = 0
+        while True:
+            code, body = front.post("/v1/prefilter-batch")
+            polls += 1
+            if code == 200:
+                got = body["schedulable"]
+                over_admitting += any(got.get(k) is True and not v
+                                      for k, v in ref["verdicts"].items())
+                if verdicts_differ(body, ref["verdicts"]) == 0:
+                    break
+            check(time.perf_counter() - t_kill < DEPLOYED_DEADLINE_S,
+                  "the fleet's verdicts never came back after the worker's restart")
+            time.sleep(0.25)
+        back_s = time.perf_counter() - t_kill
+        single_after = fleet_singles(front, ref)
+        s2 = worker_stats(port, key)
+        say("deployed", part="fleet-sigkill", shard=1, kill_to_back_s=f"{back_s:.3f}",
+            fleet_s=f"{time.perf_counter() - t_start:.3f}",
+            restart_ready_s=f"{workers[1].ready_s:.3f}", batch_polls=polls,
+            over_admitting_polls=over_admitting, single_differ=single_after,
+            device=s2["device"], epoch=s2["wire_epoch"],
+            launches=json.dumps(s2["kernel_launches"], sort_keys=True))
+        check(single_after == 0, f"{single_after} single-pod answers differ after the restart")
+        check(s2["device"].startswith(device), f"the restarted shard runs on {s2['device']}")
+        if device == "cuda":
+            check(s2["kernel_launches"]["check_gather"] >= 1,
+                  "the restarted shard launched no check_gather")
+        front.stop()
+    finally:
+        if front is not None:
+            front.kill()
+        for w in workers:
+            w.kill()
+    return dict(launches=launched, kill_to_back_s=back_s)
+
+
+def drive_deployed(card: str, device: str = "cuda", cluster=None, root=None) -> dict:
+    """The ``[deployed]`` phase: the install (its package and kernel folder
+    as a child sees them), then (a) the remote-mode daemon of
+    deploy/gpu/deployment.yaml against a ``MockApiServer`` in this process
+    holding ``cluster_objects(*cluster)``, with the install tree's listing
+    before and after and the kernel cache it built; on the card (b) the
+    same daemon after ``--prebuild`` with no ``nvcc`` reachable; and (c)
+    the TCP fleet. Every answer is held against an in-process plugin on
+    ``device``."""
+    from kube_throttler_tpu_torch import kernels
+    from kube_throttler_tpu_torch.client.mockserver import MockApiServer
+    from kube_throttler_tpu_torch.engine.store import Store
+
+    cluster = cluster or DEPLOYED_CLUSTER
+    root = root or DEPLOYED_ROOT
+    inst = Install(root)
+    before = inst.listing()
+    config = deploy_config(root)
+    package, kernel_dir = inst.run(
+        "-c", f"import {PORT} as p, {PORT}.kernels as k; print(p.__file__); print(k.build_dir())"
+    ).split()
+    say("deployed", part="install", files=len(inst.files), package=package,
+        kernel_dir=kernel_dir, build_beside=(inst.site / "build").exists(), card=repr(card))
+    check(Path(package).is_relative_to(inst.site), f"the child imported {package}")
+    check(Path(kernel_dir) == inst.kernel_cache, f"the installed kernel folder is {kernel_dir}")
+    want = sorted(kernels.library_name(name) for name in kernels.names())
+
+    t0 = time.perf_counter()
+    objects = cluster_objects(*cluster, SEED + 10)
+    ref = deployed_reference(objects, device, SEED + 11)
+    server = MockApiServer(Store())
+    load_cluster(server.store, objects)
+    server.start()
+    kubeconfig = root / "kubeconfig.yaml"
+    kubeconfig.write_text(
+        f"clusters:\n- name: smoke\n  cluster: {{server: \"{server.url}\"}}\n"
+        "contexts:\n- name: smoke\n  context: {cluster: smoke}\ncurrent-context: smoke\n")
+    say("deployed", part="cluster", pods=cluster[0], throttles=cluster[1], groups=cluster[2],
+        clusterthrottles=cluster[3], schedulable=sum(ref["verdicts"].values()),
+        routes=json.dumps(ref["routes"], sort_keys=True),
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    launches = {}
+    try:
+        launches["remote-daemon"] = deployed_daemon(inst, kubeconfig, config, ref, device,
+                                                    "remote-daemon")
+        added, cached = inst.added(before), inst.cached_kernels()
+        native = sorted(f for f in inst.listing() - before if Path(f).name == "_ktnative.so")
+        say("deployed", part="install-tree", new_files=json.dumps(added),
+            native_engine=json.dumps(native), kernel_cache=json.dumps(cached),
+            note=repr("the native engine builds into its package folder when that is "
+                      "writable, as the JAX package's does"))
+        check(not added, f"the daemon wrote into the install tree: {added[:5]}")
+        if device == "cuda":
+            check(cached == want, f"the kernel cache holds {cached}, not {want}")
+            # (b) the image's runtime: libraries prebuilt into the package,
+            # the cache emptied, no nvcc
+            t0 = time.perf_counter()
+            out = inst.run("-m", f"{PORT}.kernels", "--prebuild").split()
+            prebuild_s = time.perf_counter() - t0
+            check(sorted(Path(p).name for p in out) == want
+                  and all(Path(p).parent == inst.prebuilt for p in out),
+                  f"--prebuild wrote {out}")
+            shutil.rmtree(inst.kernel_cache)
+            launches["prebuilt-daemon"] = deployed_daemon(
+                inst, kubeconfig, config, ref, device, "prebuilt-daemon", runtime=True)
+            say("deployed", part="prebuilt", prebuild_s=f"{prebuild_s:.3f}",
+                prebuilt=json.dumps(sorted(
+                p.name for p in inst.prebuilt.glob("*.so"))),
+                kernel_cache=json.dumps(inst.cached_kernels()),
+                nvcc=repr(shutil.which("nvcc", path=inst.env(True)["PATH"])))
+            check(inst.cached_kernels() == [], "the runtime daemon built into its cache")
+        fleet = deployed_fleet(inst, config, objects, ref, device, runtime=device == "cuda")
+        launches["fleet"] = fleet["launches"]
+    finally:
+        server.stop()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, kill_to_back_s=fleet["kill_to_back_s"])
+
+
 # --------------------------------------------------------------- phases
 
 
@@ -3906,6 +4431,14 @@ def run() -> int:
     # -- the differential soak, its device stack on the card
     soak = drive_soak()
 
+    mark("deployed")
+    # -- the port as an operator installs and deploys it
+    deployed = drive_deployed(card)
+    deployed_launches = {name: deployed["launches"]["remote-daemon"].get(name, 0)
+                         + deployed["launches"]["prebuilt-daemon"].get(name, 0)
+                         + sum(s.get(name, 0) for s in deployed["launches"]["fleet"].values())
+                         for name in KERNEL_COUNTERS}
+
     say("phases", seconds=json.dumps(phase_seconds()))
 
     kernels = {"kernels": [{
@@ -3924,6 +4457,7 @@ def run() -> int:
         "props_launches": props["kernels"]["check_dense"]["launches"]["check_dense"],
         "props_examples": props["kernels"]["check_dense"]["examples"],
         "soak_launches": soak["launches"]["check_dense"],
+        "deployed_launches": deployed_launches["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -3952,6 +4486,7 @@ def run() -> int:
         "armed_launches": armed["launches"]["victim_select"],
         "props_launches": props["kernels"]["victim_select"]["launches"]["victim_select"],
         "props_examples": props["kernels"]["victim_select"]["examples"],
+        "deployed_launches": deployed_launches["victim_select"],
         "max_abs_err": max(victim_err, preempt["err"]),
         "mismatches": victim_bad + (not preempt["same"]),
         "ms": preempt["ms"],
@@ -3986,6 +4521,8 @@ def run() -> int:
         "props_examples": props["kernels"]["check_gather"]["examples"],
         "soak_launches": soak["launches"]["check_gather"],
         "soak_pack_launches": soak["launches"]["pack_gather_rows"],
+        "deployed_launches": deployed_launches["check_gather"],
+        "deployed_pack_launches": deployed_launches["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],
         "coalesce_launches": coalesce,

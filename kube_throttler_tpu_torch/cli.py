@@ -104,18 +104,22 @@ def _args_from_config(cfg: Dict[str, Any], path: str) -> Dict[str, Any]:
     return {}
 
 
-def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
+def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device,
+                   remote_workers: Dict[int, str]) -> int:
     """``serve --shards N``: the scatter-gather admission front in THIS
     process, N shard worker processes under a supervisor. The front's
     store is the merged read view the HTTP surface serves; every local
     mutation routes to the owning shards; shard status writes stream
     back (sharding/front.py).
 
-    The front never creates a CUDA context: on ``--device cuda`` it builds
-    every kernel library first (``nvcc`` alone), so the N workers find
-    them built; each worker then loads its kernels, takes its own context
-    on the card and prewarms before it answers a ping. A build failure
-    exits non-zero before any worker is spawned."""
+    The front never creates a CUDA context: on ``--device cuda``
+    :func:`main` has built every kernel library (``nvcc`` alone), so the
+    workers find them built; each worker then loads its kernels, takes its
+    own context on the card and prewarms before it answers a ping. A build
+    failure exits non-zero before any worker is spawned. A front that
+    dials every shard (``remote_workers`` covers them all) spawns none,
+    resolves no device (``device`` is None) and needs no card: the
+    workers' own ``--device`` decides where they run."""
     from .metrics import Registry
     from .sharding.front import AdmissionFront
     from .sharding.supervisor import ShardSupervisor
@@ -130,21 +134,6 @@ def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
         if not elector.acquire(stop):
             return 0
 
-    # mixed fleets: --shard-connect SID=HOST:PORT shards are dialed, not
-    # spawned (somebody else runs those workers — another host, a pod)
-    remote_workers = {}
-    for spec in getattr(args, "shard_connect", None) or []:
-        sid_s, _, hostport = spec.partition("=")
-        try:
-            sid = int(sid_s)
-        except ValueError:
-            raise SystemExit(f"--shard-connect: bad shard id in {spec!r}")
-        if not (0 <= sid < args.shards) or ":" not in hostport:
-            raise SystemExit(
-                f"--shard-connect: want SID=HOST:PORT with 0 <= SID < "
-                f"--shards, got {spec!r}"
-            )
-        remote_workers[sid] = hostport
     transport = getattr(args, "shard_transport", "socketpair")
     if remote_workers and transport != "tcp":
         transport = "tcp"  # remote workers imply the fleet transport
@@ -165,15 +154,6 @@ def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
                 "hop is loopback or locked down out-of-band",
                 flush=True,
             )
-
-    if device is not None and device.type == "cuda":
-        from .kernels import build_all
-
-        try:
-            build_all()
-        except RuntimeError as e:
-            print(f"kernel build failed: {e}", file=sys.stderr, flush=True)
-            return 1
 
     metrics_registry = Registry()
     front = AdmissionFront(
@@ -213,11 +193,13 @@ def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
     register_build_metrics(metrics_registry, role="front", front=front)
     server = ThrottlerHTTPServer(front, host=args.host, port=args.port)
     server.start()
+    where = "remote" if len(remote_workers) == args.shards else (
+        device.type if device is not None else "off")
     print(
         f"kube-throttler-gpu serving on {args.host}:{server.port} "
         f"(throttler={plugin_args.name}, "
         f"scheduler={plugin_args.target_scheduler_name}, "
-        f"shards={args.shards}, device={device.type if device is not None else 'off'})",
+        f"shards={args.shards}, device={where})",
         flush=True,
     )
     stop.wait()
@@ -231,8 +213,9 @@ def _serve_sharded(args, plugin_args, leader_elect: bool, stop, device) -> int:
     return 0
 
 
-def main(argv: Optional[list] = None) -> int:
-    from .utils.platform import DEVICE_CHOICES, select_device
+def build_parser() -> argparse.ArgumentParser:
+    """The ``kube-throttler-gpu`` argument parser (``serve``, ``version``)."""
+    from .utils.platform import DEVICE_CHOICES
 
     parser = argparse.ArgumentParser(prog="kube-throttler-gpu")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -454,7 +437,32 @@ def main(argv: Optional[list] = None) -> int:
     )
 
     sub.add_parser("version", help="print version")
+    return parser
 
+
+def _shard_connect(args) -> Dict[int, str]:
+    """``--shard-connect SID=HOST:PORT`` entries as {shard id: host:port};
+    a malformed entry exits with a usage message."""
+    remote_workers = {}
+    for spec in getattr(args, "shard_connect", None) or []:
+        sid_s, _, hostport = spec.partition("=")
+        try:
+            sid = int(sid_s)
+        except ValueError:
+            raise SystemExit(f"--shard-connect: bad shard id in {spec!r}")
+        if not (0 <= sid < args.shards) or ":" not in hostport:
+            raise SystemExit(
+                f"--shard-connect: want SID=HOST:PORT with 0 <= SID < "
+                f"--shards, got {spec!r}"
+            )
+        remote_workers[sid] = hostport
+    return remote_workers
+
+
+def main(argv: Optional[list] = None) -> int:
+    from .utils.platform import select_device
+
+    parser = build_parser()
     args = parser.parse_args(argv)
 
     if args.command == "version":
@@ -588,20 +596,38 @@ def main(argv: Optional[list] = None) -> int:
                 "yet: run an external scheduler against /v1/prefilter"
             )
 
+    # a front that dials every shard runs no worker of its own: its
+    # --device is for local workers, so it resolves none and needs no card
+    remote_workers = _shard_connect(args) if args.shards > 0 else {}
+    all_remote = args.shards > 0 and len(remote_workers) == args.shards
+
     # the device, resolved before any heavy startup: without a CUDA device
     # '--device cuda' exits here rather than serving from the CPU
     try:
-        device = select_device(args.device, use_device=not args.no_device)
+        device = None if all_remote else select_device(
+            args.device, use_device=not args.no_device)
     except RuntimeError as e:
         print(f"device unavailable: {e}", file=sys.stderr, flush=True)
         return 1
+    # on the card, every kernel library is built (or found prebuilt; nvcc
+    # alone, no CUDA context) before anything serves or a worker is
+    # spawned, so the workers only load; a failed build or a kernel folder
+    # that cannot be made is reported, not raised
+    if device is not None and device.type == "cuda":
+        from .kernels import build_all
+
+        try:
+            build_all()
+        except (RuntimeError, OSError) as e:
+            print(f"kernel build failed: {e}", file=sys.stderr, flush=True)
+            return 1
 
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
 
     if args.shards > 0:
-        return _serve_sharded(args, plugin_args, leader_elect, stop, device)
+        return _serve_sharded(args, plugin_args, leader_elect, stop, device, remote_workers)
 
     rest_config = None
     if plugin_args.kubeconfig:

@@ -1,30 +1,47 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into a shared library under the
-repository's ``build/kernels/``, named by a hash of the source so an edit
-rebuilds and a stale binary is never loaded. The library is opened with
-``ctypes``. Nothing is built at import: the first call to :func:`load`
-builds (a few seconds per file), later calls return the loaded library.
+``nvcc`` for Hopper (``sm_90a``) into a shared library named by a digest
+of the source and the flags, so an edit rebuilds and a stale binary is
+never loaded. The library is opened with ``ctypes``. Nothing is built at
+import: the first call to :func:`load` builds (a few seconds per file),
+later calls return the loaded library.
 
-A missing ``nvcc`` or a failed build raises — there is no fallback.
+Where the libraries live (:func:`library_path`), in this order:
+
+1. the prebuilt folder inside the package, ``_kernels/``, read-only at run
+   time; it is filled by ``python -m kube_throttler_tpu_torch.kernels
+   --prebuild`` (a container image runs it at build time, so its runtime
+   needs no CUDA toolkit). A library there is used only under the digest
+   computed now;
+2. otherwise :func:`build_dir`: ``build/kernels/`` of a source checkout
+   (the package's parent holds ``pyproject.toml``), else the per-user
+   cache ``$XDG_CACHE_HOME/kube-throttler-gpu/kernels`` (default
+   ``~/.cache``, mode 0700). Nothing is written inside an installed tree
+   but by ``--prebuild``.
+
+A missing ``nvcc``, a failed build or a folder that cannot be written
+raises — there is no fallback.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
+PREBUILT_DIR = PKG_DIR / "_kernels"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,21 +67,48 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def names() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_name(name: str) -> str:
+    """``<name>-<digest>.so``: the digest covers the source and the flags."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return f"{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists. The
-    output is written to a temporary name and renamed into place, so a
-    concurrent loader never opens a half-written file. Returns the path."""
-    target = library_path(name)
+def build_dir() -> Path:
+    """Where a library missing from ``_kernels/`` is built: ``build/kernels/``
+    of a source checkout, else the per-user cache."""
+    if (PKG_DIR.parent / "pyproject.toml").is_file():
+        return PKG_DIR.parent / "build" / "kernels"
+    base = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(base) / "kube-throttler-gpu" / "kernels"
+
+
+def library_path(name: str) -> Path:
+    """The prebuilt library of the current digest when there is one, else
+    its place under :func:`build_dir`."""
+    prebuilt = PREBUILT_DIR / library_name(name)
+    if prebuilt.is_file():
+        return prebuilt
+    return build_dir() / library_name(name)
+
+
+def build(name: str, out_dir: Optional[Path] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists (at
+    :func:`library_path`, or in ``out_dir`` when given). The output is
+    written to a temporary name and renamed into place, so a concurrent
+    loader never opens a half-written file. Returns the path."""
+    target = library_path(name) if out_dir is None else Path(out_dir) / library_name(name)
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(BUILD_DIR))
+    # the prebuilt folder is read by every user of a shared install; a
+    # per-user cache by its owner alone
+    prebuilt = target.parent == PREBUILT_DIR
+    target.parent.mkdir(mode=0o755 if prebuilt else 0o700, parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(target.parent))
     os.close(fd)
     try:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
@@ -73,6 +117,8 @@ def build(name: str) -> Path:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
             )
+        if prebuilt:
+            os.chmod(tmp, 0o644)
         os.replace(tmp, target)
         tmp = None
     finally:
@@ -81,15 +127,14 @@ def build(name: str) -> Path:
     return target
 
 
-def build_all() -> None:
+def build_all(out_dir: Optional[Path] = None) -> List[Path]:
     """Compile every ``csrc/*.cu`` at once, one ``nvcc`` each, without
     loading any (so no CUDA context is created): a process that spawns
     workers builds here first, and the workers' loads find the libraries
     built. Raises when any build fails."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as pool:
-        for fut in [pool.submit(build, name) for name in names]:
-            fut.result()
+    todo = names()
+    with ThreadPoolExecutor(len(todo)) as pool:
+        return [f.result() for f in [pool.submit(build, n, out_dir) for n in todo]]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -109,3 +154,27 @@ def load(name: str) -> ctypes.CDLL:
             with _lock:
                 _libs[name] = lib
         return lib
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m kube_throttler_tpu_torch.kernels")
+    parser.add_argument(
+        "--prebuild", action="store_true",
+        help="compile every csrc/*.cu into the package's _kernels/ (for an "
+        "image whose runtime has no CUDA toolkit)",
+    )
+    args = parser.parse_args(argv)
+    if not args.prebuild:
+        parser.error("nothing to do: pass --prebuild")
+    try:
+        paths = build_all(PREBUILT_DIR)
+    except (RuntimeError, OSError) as e:
+        print(f"kernel build failed: {e}", file=sys.stderr, flush=True)
+        return 1
+    for path in paths:
+        print(path, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

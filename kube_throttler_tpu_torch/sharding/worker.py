@@ -1321,8 +1321,9 @@ def listen_requires_auth(host: str) -> bool:
     return host not in _LOOPBACK_HOSTS and not host.startswith("127.")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    from ..utils.platform import DEVICE_CHOICES, select_device
+def build_parser() -> argparse.ArgumentParser:
+    """The shard worker's argument parser."""
+    from ..utils.platform import DEVICE_CHOICES
 
     parser = argparse.ArgumentParser(prog="kube-throttler-shard")
     parser.add_argument("--shard-id", type=int, required=True)
@@ -1387,6 +1388,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         "chaos harness's kill/err injection, e.g. shard.worker.kill:kill:25 "
         "or shm.reader.stall:delay:2:0.5",
     )
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from ..utils.platform import select_device
+
+    parser = build_parser()
     args = parser.parse_args(argv)
     if bool(args.listen) == (args.ipc_fd is not None):
         parser.error("exactly one of --ipc-fd and --listen is required")

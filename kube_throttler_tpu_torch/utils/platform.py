@@ -8,8 +8,9 @@ The JAX package's two helpers of this module have no counterpart here:
   of that choice (:func:`select_device`).
 - ``enable_persistent_compilation_cache`` points XLA's compilation cache
   at a directory. The port compiles its kernels once with ``nvcc`` into
-  ``build/kernels/<name>-<hash>.so`` (``kernels.py``), a cache that
-  already outlives the process; nothing else is compiled.
+  ``<name>-<hash>.so`` libraries (``kernels.py``: prebuilt in the
+  package, ``build/kernels/`` of a checkout or a per-user cache), which
+  already outlive the process; nothing else is compiled.
 """
 
 from __future__ import annotations

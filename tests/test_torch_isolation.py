@@ -28,6 +28,8 @@ def _sources():
     files += sorted((REPO / "tools").glob("*_torch.py"))
     # the test helpers the smoke imports on the card, and the tests' others
     files += sorted((REPO / "tests").glob("torch_*.py"))
+    # the port's examples
+    files += sorted((REPO / "examples").glob("*_torch.py"))
     assert len(files) > 40 and all(f.exists() for f in files)
     return files
 
@@ -107,6 +109,28 @@ def test_no_reference_harness_loaded(path):
               and node.value.endswith(".py")):
             bad.append((node.lineno, node.value))
     assert REFERENCE_TOOLS and not bad, f"{path.relative_to(REPO)} loads {bad}"
+
+
+def _deploy_texts():
+    """The port's deployment files, and the Makefile's GPU targets."""
+    texts = [(str(p.relative_to(REPO)), p.read_text(encoding="utf-8"))
+             for p in sorted((REPO / "deploy" / "gpu").glob("*.yaml"))]
+    texts.append(("Dockerfile.gpu", (REPO / "Dockerfile.gpu").read_text(encoding="utf-8")))
+    make = (REPO / "Makefile").read_text(encoding="utf-8")
+    for target in ("image-gpu", "serve-gpu", "walkthrough-gpu"):
+        m = re.search(rf"^{target}:.*\n((?:\t.*\n)+)", make, re.M)
+        assert m, target
+        texts.append((f"Makefile:{target}", m.group(0)))
+    assert len(texts) >= 6
+    return texts
+
+
+@pytest.mark.parametrize("where, text", _deploy_texts(), ids=[w for w, _ in _deploy_texts()])
+def test_deploy_files_name_no_module_of_the_jax_package(where, text):
+    """An image, a manifest's command or a make target that named the JAX
+    package would run it in place of the port."""
+    bad = re.findall(r"\bkube_throttler_tpu\b[\w.]*", text)
+    assert not bad, f"{where} names {bad}"
 
 
 def test_entry_points_refuse_cpu_unless_asked(tmp_path):
