@@ -90,6 +90,21 @@ lint:            ## 15-checker static analyzer (locks, purity, registries, block
 ci:              ## the CI gate: lint + fast smoke tier (hack/ci.sh) — lint failures fail CI, not review
 	hack/ci.sh
 
+.PHONY: lint-torch race-test-torch ci-torch
+
+lint-torch:      ## the PyTorch/CUDA port's twin of `lint`: compileall + its 12-checker static analyzer + stale-waiver gate
+	$(PY) -m compileall -q kube_throttler_tpu_torch $(wildcard tools/*_torch.py) chip_smoke.py gather_timing.py victim_timing.py
+	$(PY) -m kube_throttler_tpu_torch.analysis
+
+race-test-torch: ## the PyTorch/CUDA port's twin of `race-test`: planted races + planted stale verdicts MUST fire + detector-armed concurrency smoke
+	env KT_RACE_DETECT=1 KT_LOCK_ASSERT=1 KT_EPOCH_ASSERT=1 $(PY) -m pytest \
+		tests/test_torch_racedetect.py tests/test_torch_epochassert.py \
+		tests/test_torch_lockorder.py tests/test_torch_concurrent_check.py \
+		-q -p no:cacheprovider
+
+ci-torch:        ## the PyTorch/CUDA port's twin of `ci`: lint-torch + its fast smoke tier (hack/ci_torch.sh), all on the CPU
+	hack/ci_torch.sh
+
 gen:             ## regenerate deploy/crd.yaml from the typed API model
 	$(PY) tools/gen_crd.py
 

@@ -46,15 +46,21 @@ and a sixth drawn from the int64 extremes, three caps each; and one
 evict the host oracle's victims and let the gang admit. One more
 ``pre_filter_batch`` runs under ``utils.tracing.device_trace``
 (``torch.profiler``): whether the card's activity is traced, and its idle
-share of the call. Last, the daemon: the main path's cluster, written as a
-``--data-dir`` with the port's journal and snapshot code, is served by
-``python -m kube_throttler_tpu_torch.cli serve`` on the card; its HTTP
+share of the call. Last, the daemon: a cluster of its own (20,000 pods,
+2,000 Throttles and 8 ClusterThrottles by the main path's seed rule),
+answered in process by the plain path on the CPU and written as a
+``--data-dir`` with the port's journal and snapshot code, is served by ``python -m
+kube_throttler_tpu_torch.cli serve`` on the card; its HTTP
 batch (every verdict), tick and 200 single-pod answers must equal the
 in-process ones, ``/metrics`` must show the breaker closed and each batch
 kernel launched, and after a SIGTERM restart the same answers and a
 reservation must come back; then the embedded scheduler (``--nodes 4``)
 must bind the same pods through a preemption on the card as under
-``--no-device``. Last, the sharded fleet: an ``AdmissionFront`` in this
+``--no-device``. Then ``[tools]``: the port's memory smoke and its two
+profiling tools (``tools/{memsmoke,profile_batch,profile_reconcile}_torch.py``)
+each a child process on the card at the reference tools' defaults, each
+exiting 0, the profiled warm batch launching ``check_dense`` and
+``check_gather``. Last, the sharded fleet: an ``AdmissionFront`` in this
 process over a ``ShardSupervisor``'s 4 worker processes on the card
 serves the main path's cluster; every batch verdict, 200 single-pod
 answers and a two-phase reserve must equal the in-process ones, each
@@ -77,7 +83,8 @@ printed with its bound, and the latency gates are recorded, not enforced.
 Last, the main path with the analyzer's three runtime twins armed
 (``[armed]``), in a child interpreter of this script (``--armed-child``)
 with ``KT_LOCK_ASSERT=1 KT_RACE_DETECT=1 KT_EPOCH_ASSERT=1
-KT_VERDICT_CACHE=0``: the main path's cluster on the card, its reconcile
+KT_VERDICT_CACHE=0``: the daemon phase's cluster (a fifth of the main
+path's, by the same seed rule) on the card, its reconcile
 workers running and a churn thread adding and deleting pods, through 3
 ``pre_filter_batch``, a tick, 200 single-pod PreFilters (each twice, the
 second a verdict-cache hit that the epoch assassin recomputes), a
@@ -123,7 +130,8 @@ report per source — ``cuobjdump`` for the instruction counts, the grid
 phase's two ranks per backend tried, each in a session of its own that is
 killed whole on failure or at its deadline, and the
 four daemons of the daemon phase, one at a time, each stopped by SIGTERM
-or killed on failure; the shards phase's 4 workers (5 with the SIGKILLed
+or killed on failure; the tools phase's three children, one at a time,
+each in a session of its own that is killed whole past its deadline; the shards phase's 4 workers (5 with the SIGKILLed
 one's replacement), stopped with their supervisor, and its sharded daemon
 with its 4 workers, stopped by SIGTERM; the scenarios phase's four child
 interpreters, one at a time, each in a session of its own that is killed
@@ -216,6 +224,26 @@ DAEMON_ROOT = HERE / "build" / "daemon-smoke"
 DAEMON_BATCH_CALLS = 1
 DAEMON_SINGLE_PODS = 200
 FILL_GROUP = 9
+# the daemon phase's cluster (pods, Throttles, label groups,
+# ClusterThrottles) from cluster_objects with the main path's seed: a fifth
+# of the main path's pods and Throttles over a fifth of its groups, so each
+# group keeps its 200 pods and 20 Throttles. The daemon's startup replays
+# every object into its mirror one at a time (PERF.md §5), so this depth
+# sets most of the phase's length. The answers the daemon must give come
+# from an in-process plugin on the CPU, whose wrappers run their plain
+# versions: no kernel of the card's is on both sides of the comparison
+DAEMON_CLUSTER = (20_000, 2_000, 100, N_CLUSTER)
+# the tools phase: the port's developer tools, each a child process on the
+# card at its reference defaults (the reference tools' argv), under
+# TOOLS_DEADLINE_S each, without the verdict cache (a batch under 50,000
+# pods dedupes on the host and reaches no kernel)
+TOOLS = (
+    ("memsmoke", ("tools/memsmoke_torch.py",)),
+    ("profile_batch", ("tools/profile_batch_torch.py", "10000", "1000")),
+    ("profile_reconcile", ("tools/profile_reconcile_torch.py", "2000", "200", "2000")),
+)
+TOOLS_DEADLINE_S = 300.0
+TOOLS_ROOT = HERE / "build" / "tools-smoke"
 # the shards phase: worker processes of the sharded fleet, all on the one
 # card; its batch calls; the deadline of a fleet's start and of each wait;
 # and the CLI leg's smaller cluster (pods, Throttles, label groups,
@@ -282,7 +310,9 @@ GRID_RANK_DEADLINE_S = 120.0
 # assassin finds stale.
 ARMED_ENV = {"KT_LOCK_ASSERT": "1", "KT_RACE_DETECT": "1", "KT_EPOCH_ASSERT": "1",
              "KT_VERDICT_CACHE": "0"}
-ARMED_CLUSTER = (N_PODS, N_THROTTLES, GROUPS, N_CLUSTER)
+# the armed child's cluster: the daemon phase's fifth of the main path
+# (the main path itself runs at full width, unarmed)
+ARMED_CLUSTER = DAEMON_CLUSTER
 ARMED_BATCHES, ARMED_SINGLE, ARMED_CHURN_MOD = 3, 200, 0
 ARMED_CHURNED_GAP_S = 0.02
 ARMED_DEADLINE_S = 600.0
@@ -2274,7 +2304,7 @@ def daemon_reads(daemon: Daemon, single: dict, label: str, reserved: bool) -> di
 
 def check_reads(reads: dict, verdicts: dict, tick: dict, label: str) -> None:
     for body in reads["batch"]:
-        check(body["errors"] == [] and len(body["schedulable"]) == N_PODS,
+        check(body["errors"] == [] and len(body["schedulable"]) == len(verdicts),
               f"{label}: batch verdicts missing")
         diff = sum(body["schedulable"].get(k) is not v for k, v in verdicts.items())
         check(diff == 0, f"{label}: {diff} HTTP batch verdicts differ from the in-process ones")
@@ -2397,15 +2427,44 @@ def drive_scheduler_daemon(root: Path, device: bool) -> dict:
     return dict(bound=bound, evicted=evicted, metrics=metrics)
 
 
+def daemon_cluster(root: Path) -> dict:
+    """The ``[daemon]`` phase's cluster: ``cluster_objects(*DAEMON_CLUSTER,
+    SEED)`` served in process on the CPU (statuses reconciled), so that
+    the wrappers run their plain versions; its batch verdicts and the
+    in-process answers the daemon must give (``inprocess_answers``),
+    written as the daemon's data dir ``root/data``. Prints one ``[daemon]
+    step=cluster`` line."""
+    cluster = DAEMON_CLUSTER
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    plugin = build_cluster("cpu", *cluster, SEED)
+    try:
+        plugin.run_pending_once()
+        verdicts = plugin.pre_filter_batch()["schedulable"]
+        single = inprocess_answers(plugin, SEED + 8)
+        written = write_data_dir(root / "data", plugin.store)
+    finally:
+        plugin.stop()
+    check(len(verdicts) == cluster[0], f"{len(verdicts)} in-process verdicts for {cluster[0]} pods")
+    say("daemon", step="cluster", cluster=json.dumps(list(cluster)), device="cpu",
+        objects=written["objects"],
+        journal_bytes=written["journal_bytes"], snapshot_bytes=written["snapshot_bytes"],
+        schedulable=sum(verdicts.values()), seconds=f"{time.perf_counter() - t0:.3f}")
+    return dict(verdicts=verdicts, single=single, written=written)
+
+
 def drive_daemon(data_dir: Path, single: dict, verdicts: dict) -> dict:
-    """The ``[daemon]`` phase: ``serve --data-dir`` over the main path's
-    cluster on the card; its HTTP batch, tick and single-pod answers held
-    against the in-process ones; /metrics read; a SIGTERM restart on the
-    same dir; then the embedded scheduler on the card against
-    ``--no-device``."""
+    """The ``[daemon]`` phase: ``serve --data-dir`` over the daemon's
+    cluster (``daemon_cluster``) on the card, without the verdict cache so
+    that its batch reaches the kernels; its HTTP batch, tick and
+    single-pod answers held against the in-process ones; /metrics read; a
+    SIGTERM restart on the same dir; then the embedded scheduler on the
+    card against ``--no-device``."""
     root = data_dir.parent
     recovery_re = r"^recovery: mode="
-    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S)
+    no_cache = {"KT_VERDICT_CACHE": "0"}
+    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S,
+                    env=no_cache)
     try:
         say("daemon", step="start", spawn_to_ready_s=f"{daemon.ready_s:.3f}",
             startup_s=json.dumps(daemon.startup()),
@@ -2450,7 +2509,8 @@ def drive_daemon(data_dir: Path, single: dict, verdicts: dict) -> dict:
     finally:
         daemon.kill()
 
-    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S)
+    daemon = Daemon(["--data-dir", str(data_dir)], root / "daemon.log", DAEMON_DEADLINE_S,
+                    env=no_cache)
     try:
         say("daemon", step="restart", spawn_to_ready_s=f"{daemon.ready_s:.3f}",
             startup_s=json.dumps(daemon.startup()),
@@ -4122,6 +4182,89 @@ def drive_deployed(card: str, device: str = "cuda", cluster=None, root=None) -> 
 # --------------------------------------------------------------- phases
 
 
+# --------------------------------------------------------------- tools
+
+
+def tool_figures(name: str, stdout: str) -> dict:
+    """What a tool of TOOLS printed, as figures: memsmoke's heap objects,
+    RSS and device bytes per pod; profile_batch's warm and profiled
+    batches (``split`` lines: ms, tracer phases, launches); profile_reconcile's
+    drain (keys, keys/s and its ``split``). ``launches`` sums each kernel's
+    launches over the calls the tool measured."""
+    splits = {s["call"]: s for s in (json.loads(x[len("split "):])
+                                     for x in stdout.splitlines() if x.startswith("split "))}
+    launches = Counter()
+    for split in splits.values():
+        launches.update(split["launches"])
+    fig = {"launches": dict(launches), **splits}
+    if name == "memsmoke":
+        m = re.search(r"— ([\d.]+) heap objects/pod \(bound [\d.]+\), (\d+) B RSS/pod", stdout)
+        check(m is not None, "memsmoke printed no per-pod figures")
+        d = re.search(r": (-?\d+) B allocated/pod", stdout)
+        fig.update(heap_objects_per_pod=float(m.group(1)), rss_bytes_per_pod=int(m.group(2)),
+                   device_bytes_per_pod=int(d.group(1)) if d else None)
+    elif name == "profile_batch":
+        check(set(splits) == {"warm", "profiled"}, f"profile_batch printed splits {sorted(splits)}")
+    elif name == "profile_reconcile":
+        m = re.search(r"^drained (\d+) keys in [\d.]+s \(([\d,]+) keys/s\)", stdout, re.M)
+        check(m is not None and "drain" in splits, "profile_reconcile printed no drain")
+        fig.update(keys=int(m.group(1)), keys_per_s=int(m.group(2).replace(",", "")))
+    return fig
+
+
+def drive_tools(card: str, device: str = "cuda") -> dict:
+    """The ``[tools]`` phase: each of TOOLS (name, argv from the
+    checkout's root) as a child process with ``--device device``, one at a
+    time, in a session of its own, without the verdict cache, its output
+    in ``TOOLS_ROOT/<name>.log``, killed whole past TOOLS_DEADLINE_S. One
+    ``[tools]`` line each: exit code, wall seconds and ``tool_figures``.
+    Fails on a non-zero exit (the log's tail printed) and, on the card,
+    unless profile_batch's warm batch launched check_dense and
+    check_gather."""
+    import signal
+
+    root = TOOLS_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {**os.environ, "KT_VERDICT_CACHE": "0",
+           "PYTHONPATH": str(HERE) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = {}
+    for name, argv in TOOLS:
+        log = root / f"{name}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, *argv, "--device", device], cwd=str(HERE),
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env, start_new_session=True,
+            )
+            try:
+                stdout, _ = proc.communicate(timeout=TOOLS_DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                stdout, _ = proc.communicate()
+        wall_s = time.perf_counter() - t0
+        with open(log, "a") as f:
+            f.write(stdout)
+        if proc.returncode != 0:
+            print(f"[tools] {name} log tail:\n" + "".join(
+                log.read_text(errors="replace").splitlines(keepends=True)[-40:]), flush=True)
+            check(False, f"the tool {name} exited {proc.returncode} after {wall_s:.1f} s")
+        fig = tool_figures(name, stdout)
+        say("tools", tool=name, exit_code=0, wall_s=f"{wall_s:.3f}", device=device,
+            **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in fig.items()},
+            card=repr(card))
+        out[name] = dict(fig, wall_s=wall_s)
+    if device == "cuda" and "profile_batch" in out:
+        warm = out["profile_batch"]["warm"]["launches"]
+        for kernel in ("check_dense", "check_gather"):
+            check(warm[kernel] >= 1, f"profile_batch's warm batch launched {kernel} "
+                                     f"{warm[kernel]} times")
+    launches = Counter()
+    for fig in out.values():
+        launches.update(fig["launches"])
+    return dict(tools=out, launches={k: launches.get(k, 0) for k in KERNEL_COUNTERS})
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4257,15 +4400,11 @@ def run() -> int:
               "the ClusterThrottle kind did not produce all four outcomes")
         verdicts = res["verdicts"]
 
-        mark("data-dir")
-        # -- the daemon's data dir: the main path's cluster as it stands now,
-        # and the in-process answers the daemon must give on it
-        shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
-        written = write_data_dir(DAEMON_ROOT / "data", plugin.store)
-        say("daemon", step="data-dir", objects=written["objects"],
-            journal_bytes=written["journal_bytes"], snapshot_bytes=written["snapshot_bytes"],
-            seconds=f"{written['seconds']:.3f}")
+        mark("answers")
+        # -- the in-process answers the sharded fleet must give on this cluster
         single = inprocess_answers(plugin, SEED + 8)
+
+        mark("trace")
         trace_batch(plugin, HERE / "build" / "traces")
 
         mark("main-path-compare")
@@ -4380,13 +4519,18 @@ def run() -> int:
         say("variant", **{k: json.dumps(x) if isinstance(x, dict) else x for k, x in v.items()})
 
     mark("daemon")
-    # -- the daemon over the main path's cluster, then the embedded scheduler
+    # -- the daemon over a cluster of its own, then the embedded scheduler
     del s_mask, s_pre, s_pods, w_pre, w_pods, w_mask
     torch.cuda.empty_cache()
     try:
-        daemon = drive_daemon(DAEMON_ROOT / "data", single, verdicts)
+        served = daemon_cluster(DAEMON_ROOT)
+        daemon = drive_daemon(DAEMON_ROOT / "data", served["single"], served["verdicts"])
     finally:
         shutil.rmtree(DAEMON_ROOT, ignore_errors=True)
+
+    mark("tools")
+    # -- the port's memory smoke and profiling tools, each a child on the card
+    tools = drive_tools(card)
 
     mark("shards")
     # -- the sharded fleet on the card, in process and through the CLI
@@ -4458,6 +4602,7 @@ def run() -> int:
         "props_examples": props["kernels"]["check_dense"]["examples"],
         "soak_launches": soak["launches"]["check_dense"],
         "deployed_launches": deployed_launches["check_dense"],
+        "tools_launches": tools["launches"]["check_dense"],
         "max_abs_err": max_err,
         "mismatches": mismatches,
         "ms": k_ms,
@@ -4522,6 +4667,7 @@ def run() -> int:
         "soak_launches": soak["launches"]["check_gather"],
         "soak_pack_launches": soak["launches"]["pack_gather_rows"],
         "deployed_launches": deployed_launches["check_gather"],
+        "tools_launches": tools["launches"]["check_gather"],
         "deployed_pack_launches": deployed_launches["pack_gather_rows"],
         "pack_launches": res["pack_launches"],
         "tick_pack_launches": tick["pack_launches"],

@@ -49,15 +49,17 @@ Intended holds go in ``blocking_allow.txt``, one per line::
 
     engine.journal.StoreJournal._lock -> os.fsync()  # group-commit durability IS the journal lock's job
 
-What it cannot see: a hold is only a ``with`` block, so a lock taken by
-an explicit ``.acquire()`` and released in a ``finally`` holds nothing
-here; and a call through a local receiver (``ks = self._kind(k);
-ks.apply_agg_work(...)``) is not resolved. Both meet in
-``DeviceStateManager.aggregate_used_for`` (engine/devicestate.py),
-which takes ``_agg_locks[kind]`` and ``_lock`` by ``.acquire()`` and, with
-``KT_AGG_DEVICE_DELTAS=1``, reaches ``.cpu().numpy()`` in
-``_KindState.apply_pending_batched`` under both: a device wait under a
-named lock that no finding reports.
+A hold is a ``with`` block over a lock, or the stretch from an explicit
+``X.acquire()`` to the next ``X.release()`` on the path (at the latest,
+the end of the ``try`` statement, ``finally`` included, that the acquire
+sits in). A call through a local receiver is resolved one level: ``ks =
+self._kind(k); ks.apply_agg_work(...)`` reaches ``_KindState`` through
+``_kind``'s return annotation. Both meet in ``DeviceStateManager.aggregate_used_for``
+(engine/devicestate.py), which takes ``_agg_locks[kind]`` and ``_lock``
+by ``.acquire()`` and, with ``KT_AGG_DEVICE_DELTAS=1``, reaches
+``.cpu().numpy()`` in ``_KindState.apply_pending_batched`` under the
+aggregate lock: reported, and waived with its reason. The JAX package's
+checker has neither rule.
 
 A waiver keys on ``(lock node, blocking descriptor)``, so one line
 covers every path that reaches that pair. Allow entries matching no
@@ -282,8 +284,38 @@ class _Scan:
     def __init__(self) -> None:
         # (descriptor, held set, line)
         self.blocking: List[Tuple[str, FrozenSet[str], int]] = []
-        # (ref, held set, line): ref is ("self", m) | ("attr", a, m) | ("name", f)
+        # (ref, held set, line): ref is ("self", m) | ("attr", a, m) |
+        # ("name", f) | ("local", class qual, m)
         self.calls: List[Tuple[Tuple[str, ...], FrozenSet[str], int]] = []
+
+
+def _local_types(fn: ast.AST, info: Optional[_ClassInfo],
+                 by_bare_name: Dict[str, List[_ClassInfo]]) -> Dict[str, str]:
+    """One level of local receivers: ``x = self.m(...)`` where this
+    class's method ``m`` is annotated to return exactly one known class
+    (``-> _KindState``), as ``{local name: class qual}``. A name bound to
+    two different classes is dropped."""
+    if info is None:
+        return {}
+    returns: Dict[str, str] = {}
+    for node in info.cls.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.returns:
+            cands = by_bare_name.get(unparse(node.returns).strip("'\""), [])
+            if len(cands) == 1:
+                returns[node.name] = cands[0].qual
+    out: Dict[str, Optional[str]] = {}
+    for node in ast.walk(fn):
+        if not (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)):
+            continue
+        f = node.value.func
+        if not (isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name)
+                and f.value.id == "self" and f.attr in returns):
+            continue
+        qual = returns[f.attr]
+        for t in node.targets:
+            if isinstance(t, ast.Name):
+                out[t.id] = qual if out.get(t.id, qual) == qual else None
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def _scan_function(
@@ -294,29 +326,81 @@ def _scan_function(
     kernels: Set[str],
     out: _Scan,
 ) -> None:
+    """Walk ``fn``'s statements in order. A lock is held inside a ``with``
+    block over it, and from an explicit ``X.acquire()`` until the next
+    ``X.release()`` on the path, or at the latest to the end of the
+    ``try`` statement (its ``finally`` included) that the acquire sits in.
+    Branches and loop bodies are walked from the same entry state and
+    their exits joined, so a lock taken on any path counts as held."""
     tensors = frozenset(_tensor_names(fn))
+    local_types = _local_types(fn, info, by_bare_name)
 
-    def visit(node: ast.AST, held: FrozenSet[str]) -> None:
+    def lock_node(expr: ast.AST) -> Optional[str]:
+        return resolve_lock_node(expr, info, mod_locks, by_bare_name)
+
+    def own_exprs(node: ast.AST) -> List[ast.AST]:
+        """The expressions a statement evaluates itself, not those of its
+        nested blocks or nested defs."""
+        return [c for c in ast.iter_child_nodes(node) if isinstance(c, ast.expr)]
+
+    def lock_ops(exprs: List[ast.AST], acq: FrozenSet[str]) -> FrozenSet[str]:
+        now = set(acq)
+        for expr in exprs:
+            for sub in ast.walk(expr):
+                if (isinstance(sub, ast.Call) and isinstance(sub.func, ast.Attribute)
+                        and sub.func.attr in ("acquire", "release")):
+                    n = lock_node(sub.func.value)
+                    if n is None:
+                        continue
+                    if sub.func.attr == "acquire":
+                        now.add(n)
+                    else:
+                        now.discard(n)
+        return frozenset(now)
+
+    def block(stmts: List[ast.stmt], held: FrozenSet[str],
+              acq: FrozenSet[str]) -> FrozenSet[str]:
+        for stmt in stmts:
+            acq = statement(stmt, held, acq)
+        return acq
+
+    def branches(bodies, held, acq) -> FrozenSet[str]:
+        joined: Set[str] = set()
+        for body in bodies:
+            joined |= block(body, held, acq)
+        return frozenset(joined)
+
+    def statement(node: ast.stmt, held: FrozenSet[str],
+                  acq: FrozenSet[str]) -> FrozenSet[str]:
+        """Record ``node``'s calls; return the locks acquired after it."""
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            block(node.body, held | acq, frozenset())
+            return acq
         if isinstance(node, (ast.With, ast.AsyncWith)):
             inner = set(held)
             for item in node.items:
-                scan_expr(item.context_expr, held)
-                n = resolve_lock_node(item.context_expr, info, mod_locks, by_bare_name)
+                scan_expr(item.context_expr, held | acq)
+                n = lock_node(item.context_expr)
                 if n is not None:
                     inner.add(n)
-            for stmt in node.body:
-                visit(stmt, frozenset(inner))
-            return
-        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
-            body = node.body if isinstance(node.body, list) else [node.body]
-            for stmt in body:
-                visit(stmt, held)
-            return
-        if isinstance(node, ast.expr):
-            scan_expr(node, held)
-            return
-        for child in ast.iter_child_nodes(node):
-            visit(child, held)
+            return block(node.body, frozenset(inner), acq)
+        if isinstance(node, (ast.Try, getattr(ast, "TryStar", ast.Try))):
+            body = block(node.body, held, acq)
+            exits = branches([h.body for h in node.handlers], held, acq | body)
+            exits |= block(node.orelse, held, body)
+            final = block(node.finalbody, held, exits | body)
+            return final & acq  # a lock taken inside is gone after the try
+        exprs = own_exprs(node)
+        for expr in exprs:
+            scan_expr(expr, held | acq)
+        after = lock_ops(exprs, acq)
+        if isinstance(node, ast.If):
+            return branches([node.body, node.orelse], held, after)
+        if isinstance(node, (ast.For, ast.AsyncFor, ast.While)):
+            return after | branches([node.body, node.orelse], held, after)
+        if isinstance(node, ast.Match):
+            return branches([c.body for c in node.cases], held, after)
+        return after
 
     def scan_expr(expr: ast.AST, held: FrozenSet[str]) -> None:
         for sub in ast.walk(expr):
@@ -331,6 +415,9 @@ def _scan_function(
                 base = f.value
                 if isinstance(base, ast.Name) and base.id == "self":
                     out.calls.append((("self", f.attr), held, sub.lineno))
+                elif isinstance(base, ast.Name) and base.id in local_types:
+                    out.calls.append((("local", local_types[base.id], f.attr),
+                                      held, sub.lineno))
                 elif (
                     isinstance(base, ast.Attribute)
                     and isinstance(base.value, ast.Name)
@@ -341,8 +428,7 @@ def _scan_function(
                 out.calls.append((("name", f.id), held, sub.lineno))
 
     body = fn.body if isinstance(fn.body, list) else [fn.body]
-    for stmt in body:
-        visit(stmt, frozenset())
+    block(body, frozenset(), frozenset())
 
 
 def _observer_bridges(
@@ -481,6 +567,9 @@ def check(
                 callee = (cands[0].qual, ref[2])
                 return callee if callee in scans else None
             return None
+        if ref[0] == "local":
+            callee = (ref[1], ref[2])
+            return callee if callee in scans else None
         if ref[0] == "name":
             cands = module_fns.get(ref[1], [])
             if len(cands) == 1:

@@ -329,8 +329,10 @@ def _apply_hello(handle, body) -> None:
     the handle's reader thread — the negotiation fields are that
     thread's single-writer state, read racily by metrics/health)."""
     if isinstance(body, dict) and "error" in body:
-        handle.version_refused = str(body["error"])
+        # counted before it is published: a reader that sees the refusal
+        # (request()'s fast fail, health, a test's wait) sees it counted
         handle.version_mismatches += 1
+        handle.version_refused = str(body["error"])
         logger.warning(
             "shard %d: handshake refused: %s",
             handle.shard_id, handle.version_refused,

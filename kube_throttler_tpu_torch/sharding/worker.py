@@ -1425,6 +1425,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"shard {args.shard_id}: device unavailable: {e}",
               file=sys.stderr, flush=True)
         return 1
+    # on the card, the kernel libraries are built (or found built) before
+    # the engine prewarms them, so a failed build or a kernel folder that
+    # cannot be made is reported as serve reports it, not raised; a
+    # KernelLaunchError once serving has begun still propagates
+    if device is not None and device.type == "cuda":
+        from ..kernels import build_all
+
+        try:
+            build_all()
+        except (RuntimeError, OSError) as e:
+            print(f"shard {args.shard_id}: kernel build failed: {e}",
+                  file=sys.stderr, flush=True)
+            return 1
 
     logging.basicConfig(
         level=logging.INFO,

@@ -24,6 +24,7 @@ over the port itself.
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -609,6 +610,170 @@ class TestBlocking:
             reference_load_package(str(root)), allowlist_path=str(allow), stale_out=ref_stale
         ) == []
         assert ref_stale == stale
+
+
+    # the port's own rules: a hold by explicit acquire/release and a call
+    # through a local receiver. The JAX package's checker has neither, so
+    # these fixtures run the port's analyzer alone (the carve-out of
+    # tests/test_torch_analysis_parity.py) and check that the JAX
+    # package's sees nothing where the port's fires.
+
+    _ACQUIRE_SRC = '''\
+        import contextlib
+        import threading
+        import time
+
+
+        class Box:
+            def __init__(self):
+                self._lock = threading.Lock()
+
+            def held(self):
+                with contextlib.nullcontext():
+                    self._lock.acquire()
+                try:
+                    time.sleep(0.5)
+                finally:
+                    self._lock.release()
+
+            def released(self):
+                self._lock.acquire()
+                try:
+                    pass
+                finally:
+                    self._lock.release()
+                time.sleep(0.5)
+        '''
+
+    @staticmethod
+    def _port_only(root):
+        found = run_checks(load_package(str(root)), ("blocking",),
+                           blocking_allowlist_path=DEFAULT_BLOCKING_ALLOWLIST)
+        ref = reference_run_checks(reference_load_package(str(root)), ("blocking",),
+                                   blocking_allowlist_path=DEFAULT_BLOCKING_ALLOWLIST)
+        return found, ref
+
+    @pytest.mark.parametrize("method, fires", [("held", True), ("released", False)])
+    def test_acquire_release_region(self, tmp_path, method, fires):
+        """A lock taken by ``.acquire()`` (inside a ``with`` block of
+        its own) is held through the ``try`` until the ``finally``'s
+        ``.release()``: a sleep there fires; one after the release does
+        not."""
+        src = self._ACQUIRE_SRC.replace(f"def {method}(", "def target(")
+        found, ref = self._port_only(write_tree(tmp_path, {"mod.py": src}))
+        hits = [f for f in found if "(in Box.target)" in f.message]
+        if fires:
+            assert [(f.line, f.message) for f in hits] == [
+                (14, "blocking sleep() while holding mod.Box._lock (in Box.target)")]
+        else:
+            assert hits == [], [f.render() for f in hits]
+        assert ref == []
+
+    def test_local_receiver_is_resolved_one_level(self, tmp_path):
+        root = write_tree(
+            tmp_path,
+            {
+                "mod.py": '''\
+                import threading
+                import time
+
+
+                class Part:
+                    def settle(self):
+                        time.sleep(0.5)
+
+
+                class Box:
+                    def __init__(self):
+                        self._lock = threading.Lock()
+                        self._parts = {}
+
+                    def _part(self, k) -> "Part":
+                        return self._parts[k]
+
+                    def by_annotation(self, k):
+                        part = self._part(k)
+                        with self._lock:
+                            part.settle()
+
+                    def unresolved(self, part):
+                        with self._lock:
+                            part.settle()
+                ''',
+            },
+        )
+        found, ref = self._port_only(root)
+        assert [(f.line, f.message) for f in found] == [
+            (21, "blocking sleep() while holding mod.Box._lock (in Box.by_annotation -> settle)")]
+        assert ref == []
+
+    def test_aggregate_used_for_holds_the_agg_lock_across_the_apply(self):
+        """The site the checker's docstring names: ``aggregate_used_for``
+        takes ``_agg_locks[kind]`` and ``_lock`` by ``.acquire()``; the
+        steal runs under both, the apply (``ks.apply_agg_work``, through a
+        local receiver) under the aggregate lock alone, and the apply
+        reaches ``.cpu()`` and ``.numpy()`` (``KT_AGG_DEVICE_DELTAS=1``).
+        Without its waiver the pair is a finding."""
+        from kube_throttler_tpu_torch.analysis import PACKAGE_ROOT, blocking
+        from kube_throttler_tpu_torch.analysis.core import iter_classes, iter_methods
+        from kube_throttler_tpu_torch.analysis.lockgraph import (
+            _collect_class_info,
+            _ModuleLocks,
+        )
+
+        modules = load_package(PACKAGE_ROOT)
+        (mod,) = [m for m in modules if m.modname == "engine.devicestate"]
+        infos = {c.name: _collect_class_info(mod, c) for c in iter_classes(mod)}
+        by_bare = {n: [i] for n, i in infos.items()}
+        (fn,) = [f for f in iter_methods(infos["DeviceStateManager"].cls)
+                 if f.name == "aggregate_used_for"]
+        scan = blocking._Scan()
+        blocking._scan_function(fn, infos["DeviceStateManager"], _ModuleLocks(mod),
+                                by_bare, set(), scan)
+        agg = "engine.devicestate.DeviceStateManager._agg_locks"
+        main = "engine.devicestate.DeviceStateManager._lock"
+        held = {ref[-1]: h for ref, h, _ in scan.calls}
+        assert held["steal_agg_work"] == {agg, main}
+        assert held["apply_agg_work"] == {agg}
+        assert ("local", "engine.devicestate._KindState", "apply_agg_work") in {
+            ref for ref, _, _ in scan.calls}
+        assert held["flip_candidate_cols"] == {agg}
+        messages = [f.message for f in blocking.check(modules)]
+        for desc in ("torch:.cpu()", "torch:.numpy()"):
+            assert any(f"blocking {desc} while holding {agg} " in m for m in messages)
+
+    def test_the_store_lock_reaches_a_device_wait_only_through_ingest_flip_promotion(
+            self, monkeypatch):
+        """``Store._lock -> torch:.cpu()`` and ``-> torch:.numpy()`` are
+        waived for one route: dispatch's handlers reach
+        ``DeviceStateManager._promote_ingest_flips``, whose aggregate apply
+        waits for the card under ``KT_AGG_DEVICE_DELTAS=1``. A waiver keys
+        on the pair alone, so it would hide any other chain to a device
+        wait under the store lock: with that one method left out of the
+        analysis, the store lock must reach no device wait at all."""
+        from kube_throttler_tpu_torch.analysis import PACKAGE_ROOT, blocking
+
+        modules = load_package(PACKAGE_ROOT)
+        scan = blocking._scan_function
+
+        def store_lock_device_waits():
+            pairs = set()
+            for f in blocking.check(modules):
+                m = re.match(r"blocking (\S+) while holding engine\.store\.Store\._lock ",
+                             f.message)
+                if m and m.group(1).startswith(("torch:", "kernel:", "torch.cuda.")):
+                    pairs.add(m.group(1))
+            return pairs
+
+        def without_promotion(fn, info, *rest):
+            if (info is not None and info.qual == "engine.devicestate.DeviceStateManager"
+                    and fn.name == "_promote_ingest_flips"):
+                return
+            scan(fn, info, *rest)
+
+        assert store_lock_device_waits() == {"torch:.cpu()", "torch:.numpy()"}
+        monkeypatch.setattr(blocking, "_scan_function", without_promotion)
+        assert store_lock_device_waits() == set()
 
 
 # ------------------------------------------------------------------ threads

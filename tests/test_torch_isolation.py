@@ -112,16 +112,19 @@ def test_no_reference_harness_loaded(path):
 
 
 def _deploy_texts():
-    """The port's deployment files, and the Makefile's GPU targets."""
+    """The port's deployment files, its CI gate (``hack/ci_torch.sh``), and
+    the Makefile's GPU and port targets."""
     texts = [(str(p.relative_to(REPO)), p.read_text(encoding="utf-8"))
              for p in sorted((REPO / "deploy" / "gpu").glob("*.yaml"))]
     texts.append(("Dockerfile.gpu", (REPO / "Dockerfile.gpu").read_text(encoding="utf-8")))
+    texts.append(("hack/ci_torch.sh", (REPO / "hack" / "ci_torch.sh").read_text(encoding="utf-8")))
     make = (REPO / "Makefile").read_text(encoding="utf-8")
-    for target in ("image-gpu", "serve-gpu", "walkthrough-gpu"):
+    for target in ("image-gpu", "serve-gpu", "walkthrough-gpu", "lint-torch",
+                   "race-test-torch", "ci-torch"):
         m = re.search(rf"^{target}:.*\n((?:\t.*\n)+)", make, re.M)
         assert m, target
         texts.append((f"Makefile:{target}", m.group(0)))
-    assert len(texts) >= 6
+    assert len(texts) >= 10
     return texts
 
 
@@ -131,6 +134,13 @@ def test_deploy_files_name_no_module_of_the_jax_package(where, text):
     package would run it in place of the port."""
     bad = re.findall(r"\bkube_throttler_tpu\b[\w.]*", text)
     assert not bad, f"{where} names {bad}"
+
+
+@pytest.mark.parametrize("where, text", _deploy_texts(), ids=[w for w, _ in _deploy_texts()])
+def test_deploy_files_pin_no_jax_platform(where, text):
+    """``JAX_PLATFORMS`` in a port file would mean it runs JAX somewhere;
+    the port's steps pick the CPU with ``--device cpu``."""
+    assert "JAX_PLATFORMS" not in text, where
 
 
 def test_entry_points_refuse_cpu_unless_asked(tmp_path):

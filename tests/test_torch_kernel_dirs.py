@@ -211,3 +211,28 @@ def test_serve_reports_a_kernel_folder_it_cannot_make(tmp_path, shards):
     assert "Traceback" not in proc.stderr
     assert "spawning" not in proc.stdout
     assert not (cuda / "calls.log").exists()
+
+
+@pytest.mark.parametrize("failure", ["folder", "nvcc"])
+def test_a_listen_worker_reports_a_kernel_build_it_cannot_make(tmp_path, failure):
+    """A TCP shard worker (``sharding.worker --listen``) on a (stubbed)
+    card builds its kernels before its engine: a kernel folder it cannot
+    make (an ``OSError``) or a failed ``nvcc`` (a ``RuntimeError``) is
+    reported as ``serve`` reports it, exit 1 and no traceback."""
+    site = _install(tmp_path)
+    xdg = tmp_path / "xdg"
+    if failure == "folder":
+        (xdg / "kube-throttler-gpu").mkdir(parents=True)
+        (xdg / "kube-throttler-gpu" / "kernels").write_text("not a folder")
+    cuda = _fake_cuda(tmp_path, fail=failure == "nvcc")
+    argv = ["--shard-id", "0", "--shards", "1", "--listen", "127.0.0.1:0"]
+    proc = _child(tmp_path, site, f"""
+        import sys, torch
+        torch.cuda.is_available = lambda: True  # a card, as far as the worker can tell
+        from {PKG}.sharding import worker
+        sys.exit(worker.main({argv!r}))
+    """, XDG_CACHE_HOME=str(xdg), CUDA_HOME=str(cuda))
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "shard 0: kernel build failed: " in proc.stderr
+    assert "Traceback" not in proc.stderr
+    assert (cuda / "calls.log").exists() == (failure == "nvcc")

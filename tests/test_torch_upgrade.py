@@ -548,12 +548,17 @@ class TestWireHandshake:
             assert skewed.version_mismatches >= 1
             with pytest.raises(VersionMismatch):
                 skewed.request("ping", timeout=2.0)
-            assert rig.core.version_mismatches >= 1
+            # read under the core's epoch lock, which its writer holds: a
+            # bare read here is a lockset race the race gate reports
+            assert rig.core.negotiated_state()["version_mismatches"] >= 1
             # the refusal killed ONE lane, not the process: a compatible
             # client handshakes and serves on the same listener
             monkeypatch.setattr(ipc_mod, "local_hello", real_hello)
             healthy = rig.client()
-            wait_until(lambda: healthy.negotiated_proto is not None,
+            # the hello lands on lane 0's reader before the reconnector has
+            # dialed the other lanes and marked the link up; a request
+            # needs both
+            wait_until(lambda: healthy.negotiated_proto is not None and healthy.alive,
                        msg="healthy handshake")
             assert healthy.negotiated_proto == PROTO_VERSION
             assert healthy.negotiated_caps == CAPABILITIES
@@ -561,6 +566,28 @@ class TestWireHandshake:
             assert healthy.request("ping", timeout=5.0)
         finally:
             rig.close()
+
+    def test_a_refusal_is_counted_before_it_is_published(self):
+        """Fault (p): the client's hello reader set ``version_refused``
+        and only then counted it, so a thread that saw the refusal could
+        still read ``version_mismatches == 0`` (the test above, under
+        load). Every reader that sees the refusal must see it counted."""
+        from kube_throttler_tpu_torch.sharding.ipc import _apply_hello
+
+        counted_when_published = []
+
+        class Handle:
+            shard_id = 0
+            version_refused = None
+            version_mismatches = 0
+
+            def __setattr__(self, name, value):
+                if name == "version_refused" and value is not None:
+                    counted_when_published.append(self.version_mismatches)
+                object.__setattr__(self, name, value)
+
+        _apply_hello(Handle(), {"error": "VersionMismatch: major 99 != 1"})
+        assert counted_when_published == [1]
 
     def test_front_health_names_the_version_mismatch(self, monkeypatch):
         import kube_throttler_tpu_torch.sharding.ipc as ipc_mod

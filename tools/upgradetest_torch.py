@@ -66,6 +66,15 @@ def _new_caps() -> str:
     return ",".join(sorted(CAPABILITIES))
 
 
+def _fleet_caps() -> frozenset:
+    """The full capability set a lane of this TCP fleet can negotiate: a
+    ``--listen`` worker has no shared-memory ring with its front, so it
+    never advertises ``evt-shm`` (``sharding/worker.py`` ``main``)."""
+    from kube_throttler_tpu_torch.version import CAPABILITIES
+
+    return CAPABILITIES - {"evt-shm"}
+
+
 def _set_env(var: str, value) -> None:
     if value is None:
         os.environ.pop(var, None)
@@ -233,10 +242,8 @@ def case_worker_first(seed, n_pods=160, bounce_bound_s=90.0,
         assert report2["aborted"] is None, report2["aborted"]
         churner.stop()
         _wait_fleet_ok(front, recovery_s)
-        from kube_throttler_tpu_torch.version import CAPABILITIES
-
         for sid in range(front.n_shards):
-            assert _caps_of(front, sid) == CAPABILITIES, (
+            assert _caps_of(front, sid) == _fleet_caps(), (
                 f"shard {sid} did not land on the full capability set: "
                 f"{_caps_of(front, sid)}"
             )
@@ -286,10 +293,8 @@ def case_front_first(seed, n_pods=160, bounce_bound_s=90.0, recovery_s=60.0):
         assert report2["aborted"] is None, report2["aborted"]
         churner.stop()
         _wait_fleet_ok(front, recovery_s)
-        from kube_throttler_tpu_torch.version import CAPABILITIES
-
         for sid in range(front.n_shards):
-            assert _caps_of(front, sid) == CAPABILITIES
+            assert _caps_of(front, sid) == _fleet_caps()
         slow = [
             b for b in report["bounces"] + report2["bounces"]
             if b["seconds"] > bounce_bound_s
