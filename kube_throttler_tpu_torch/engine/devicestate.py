@@ -42,7 +42,6 @@ from .. import resolve_device
 from ..utils.tracing import NoopTracer
 from ..utils.lockorder import make_lock, make_rlock
 from ..utils import epochassert as _epochassert
-from ..utils.retrace import on_tick as _retrace_on_tick
 from ..api.pod import Pod
 from ..api.types import ClusterThrottle, ResourceAmount, Throttle
 from ..quantity import to_milli
@@ -2295,11 +2294,6 @@ class DeviceStateManager:
                         ref, int(cnt[i]), np.where(pres, req[i], 0), pres
                     )
                 out[key] = (amt, out[key][1])
-            # tick boundary for the runtime retrace budget: with
-            # KT_JIT_RETRACE_BUDGET armed, a drain that recompiled any
-            # registered jit entry after warmup fails HERE, naming the
-            # entry — not as a 100ms-class latency regression two PRs out
-            _retrace_on_tick()
             return out
 
     # -- queries ----------------------------------------------------------
@@ -2921,8 +2915,9 @@ class DeviceStateManager:
         pre_filter_batch composed two separately-locked snapshots — a
         concurrent store event between them could yield a verdict matching
         no single point in time). Returns {kind: (counts, schedulable,
-        row_map)}."""
-        with self._lock:
+        row_map)}. The lock wait and the grab are traced as
+        ``batch_handles``."""
+        with self.tracer.trace("batch_handles"), self._lock:
             handles = {
                 kind: self._grab_batch_handles(kind, on_equal)
                 for kind in ("throttle", "clusterthrottle")

@@ -83,6 +83,17 @@ METRIC_NAMES = frozenset(
         "kube_throttler_device_fallback_total",
         # phase-latency tracing histogram (utils/tracing.py)
         "kube_throttler_phase_duration_seconds",
+        # the CPython collector, per generation (register_gc_metrics, read at
+        # scrape time from utils/gchygiene.py's hook): seconds paused and
+        # collections run since the hook was installed; a pause stops every
+        # thread of the process
+        "kube_throttler_gc_pause_seconds_total",
+        "kube_throttler_gc_collections_total",
+        # pre_filter_batch's dedupe probe by outcome (plugin/plugin.py):
+        # served, declined_size (more pods than BATCH_DEDUPE_MAX_PODS) or
+        # declined_mix (too few pods share a verdict fingerprint); served
+        # over all three is the probe's useful share
+        "kube_throttler_batch_dedupe_total",
         # crash-safety layer (register_recovery_metrics): snapshot cadence
         # + the last recovery's shape (engine/snapshot.py, engine/recovery.py)
         "kube_throttler_snapshot_total",
@@ -663,6 +674,34 @@ def register_kernel_metrics(registry: Registry) -> GaugeVec:
 
     registry.register_pre_expose(refresh)
     return gauge
+
+
+def register_gc_metrics(registry: Registry) -> None:
+    """The collector's pauses and collections per generation, read at
+    scrape time from the accounting hook (``utils/gchygiene.py``), which
+    this installs if it is not installed yet."""
+    from .utils.gchygiene import gc_totals, install_gc_accounting
+
+    install_gc_accounting()
+    pause = registry.counter_vec(
+        "kube_throttler_gc_pause_seconds_total",
+        "seconds the CPython collector paused the process, per generation",
+        ["generation"],
+    )
+    runs = registry.counter_vec(
+        "kube_throttler_gc_collections_total",
+        "CPython collections run in the process, per generation",
+        ["generation"],
+    )
+
+    def refresh() -> None:
+        for gen in range(3):
+            totals = gc_totals(gen)
+            if totals is not None:
+                pause.set_key((str(gen),), totals[0])
+                runs.set_key((str(gen),), float(totals[1]))
+
+    registry.register_pre_expose(refresh)
 
 
 def register_recovery_metrics(

@@ -34,6 +34,7 @@ from ..metrics import (
     StatusLagMetrics,
     ThrottleMetricsRecorder,
     register_breaker_metrics,
+    register_gc_metrics,
     register_kernel_metrics,
     register_watch_metrics,
 )
@@ -72,6 +73,13 @@ class KubeThrottler:
         self.event_recorder = event_recorder
         self.metrics_registry = metrics_registry or Registry()
         self.tracer = PhaseTracer(self.metrics_registry)
+        register_gc_metrics(self.metrics_registry)
+        self.dedupe_outcomes = self.metrics_registry.counter_vec(
+            "kube_throttler_batch_dedupe_total",
+            "pre_filter_batch dedupe probe calls by outcome (served, "
+            "declined_size, declined_mix)",
+            ["outcome"],
+        )
         # ORDER MATTERS: the device mirror registers its store handlers
         # FIRST so its rows/masks update before the informer fan-out reaches
         # the controllers' enqueues — a worker draining the key immediately
@@ -496,7 +504,7 @@ class KubeThrottler:
 
             # host oracle, side-effect-free (no Warning events — triage
             # only, matching the device path)
-            for pod in self.listers.pods.list():
+            for pod in self._list_pods():
                 try:
                     ta, ti, te, _ = self.throttle_ctr.check_throttled(pod, False)
                     ca, ci, ce, _ = self.cluster_throttle_ctr.check_throttled(pod, False)
@@ -505,6 +513,13 @@ class KubeThrottler:
                     continue
                 schedulable[pod.key] = not (ta or ti or te or ca or ci or ce)
             return {"schedulable": schedulable, "errors": errors}
+
+    def _list_pods(self) -> list:
+        """Every pod of the informer's cache, each materialised from the
+        store: the one full listing of the batch-triage surfaces, traced
+        as ``list_pods``."""
+        with self.tracer.trace("list_pods"):
+            return self.listers.pods.list()
 
     # dedupe is only attempted below this pod count: fingerprinting is
     # O(P) host work, and past this scale the fused device kernel wins
@@ -525,8 +540,9 @@ class KubeThrottler:
         (no Warning events), unknown-namespace pods land in ``errors``,
         ERROR evaluations route every group member to ``errors``."""
         dm, cache = self.device_manager, self.verdict_cache
-        pods = self.listers.pods.list()
+        pods = self._list_pods()
         if len(pods) > self.BATCH_DEDUPE_MAX_PODS:
+            self.dedupe_outcomes.inc({"outcome": "declined_size"})
             return None
         groups: dict = {}
         loners: list = []
@@ -540,6 +556,7 @@ class KubeThrottler:
                 groups[fp[0]] = g = (fp[1], [])
             g[1].append(pod)
         if len(pods) > 256 and len(groups) * 2 > len(pods):
+            self.dedupe_outcomes.inc({"outcome": "declined_mix"})
             return None  # not degenerate — grouping bought nothing
         schedulable: dict = {}
         errors: list = []
@@ -573,6 +590,7 @@ class KubeThrottler:
                 errors.append(pod.key)
                 continue
             schedulable[pod.key] = not (ta or ti or te or ca or ci or ce)
+        self.dedupe_outcomes.inc({"outcome": "served"})
         return {"schedulable": schedulable, "errors": errors}
 
     @staticmethod
@@ -643,7 +661,7 @@ class KubeThrottler:
             return
         from ..api.pod import accel_class_of
 
-        for pod in self.listers.pods.list():
+        for pod in self._list_pods():
             if not accel_class_of(pod) or pod.key not in schedulable:
                 continue
             try:

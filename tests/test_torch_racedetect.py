@@ -1,5 +1,5 @@
-"""The port's runtime race detector and retrace registry name what they
-track as the JAX package's do: the module path below the package
+"""The port's runtime race detector names what it tracks as the JAX
+package's does: the module path below the package
 (``sharding.ipc.ShardClient.dropped``), not the port's full module name,
 so the port's race waivers are keyed as the reference's. The port reads
 its waivers from ``kube_throttler_tpu_torch/analysis_waivers/race_allow.txt``,
@@ -12,9 +12,7 @@ from pathlib import Path
 import pytest
 
 from kube_throttler_tpu.utils import racedetect as j_racedetect
-from kube_throttler_tpu.utils import retrace as j_retrace
 from kube_throttler_tpu_torch.utils import racedetect
-from kube_throttler_tpu_torch.utils import retrace
 
 PORT = Path(__file__).resolve().parent.parent / "kube_throttler_tpu_torch"
 
@@ -31,23 +29,6 @@ def test_descriptor_names_equal_the_reference(module, cls, attr):
         mod.install_descriptors(fake, [attr])
         quals.append(fake.__dict__[attr].qual)
     assert quals[1] == quals[0] == f"{module}.{cls}.{attr}"
-
-
-def test_retrace_names_equal_the_reference():
-    class Entry:
-        _cache_size = 0
-
-        def __call__(self):
-            return None
-
-    for mod, package in ((j_retrace, "kube_throttler_tpu"), (retrace, "kube_throttler_tpu_torch")):
-        assert mod.register_all({"probe_step": Entry()}, f"{package}.ops.probe") == 1
-        try:
-            assert "ops.probe.probe_step" in mod.registered(), package
-        finally:
-            with mod._mu:  # noqa: SLF001 — the registry has no public removal
-                for name in [n for n in mod._registry if n.endswith("probe_step")]:
-                    del mod._registry[name]
 
 
 def _guarded_attrs():

@@ -1,8 +1,13 @@
 """Tracing/profiling subsystem (SURVEY §5 TPU-native equivalent): phase
 histograms through the metrics registry, klog-style verbosity, the
-/debug/flags/v endpoint, and tracer wiring through plugin/controllers."""
+/debug/flags/v endpoint, tracer wiring through plugin/controllers, the
+spans as profiler annotations while a ``torch.profiler`` session records,
+and the batch-triage surfaces' spans and counters."""
 
+import json
 import urllib.request
+
+import torch
 
 from kube_throttler_tpu_torch.api import (
     LabelSelector,
@@ -18,6 +23,45 @@ from kube_throttler_tpu_torch.metrics import Registry
 from kube_throttler_tpu_torch.plugin import KubeThrottler, decode_plugin_args
 from kube_throttler_tpu_torch.utils import tracing
 from torch_race_gate import race_gate  # noqa: E402,F401  (autouse: the port's race gate)
+
+
+def _annotations(path):
+    """The user annotations of a Chrome trace file."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    return [e for e in events if e.get("cat") == "user_annotation"]
+
+
+def _profiled(prof, tmp_path):
+    """The user annotations of a stopped profiler's Chrome trace."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return _annotations(path)
+
+
+def _triage_plugin(pods=1):
+    """A device-backed plugin (on the CPU) with one Throttle selecting
+    ``pods`` pods, reconciled."""
+    store, plugin = _plugin(use_device=True)
+    store.create_throttle(
+        Throttle(
+            name="t1",
+            spec=ThrottleSpec(
+                throttler_name="kube-throttler",
+                threshold=ResourceAmount.of(requests={"cpu": "100"}),
+                selector=ThrottleSelector(
+                    selector_terms=(
+                        ThrottleSelectorTerm(LabelSelector(match_labels={"throttle": "t1"})),
+                    )
+                ),
+            ),
+        )
+    )
+    for i in range(pods):
+        # a distinct request each, so no two pods share a verdict fingerprint
+        store.create_pod(make_pod(f"p{i}", labels={"throttle": "t1"},
+                                  requests={"cpu": f"{i + 1}m"}))
+    plugin.run_pending_once()
+    return store, plugin
 
 
 def _plugin(use_device=False):
@@ -82,6 +126,36 @@ class TestPhaseTracer:
             pass
         assert tr.snapshot("x") is None
 
+    def test_no_annotation_object_without_a_profiler(self, monkeypatch):
+        made = []
+
+        def counting(name):
+            made.append(name)
+            return torch.autograd.profiler.record_function(name)
+
+        monkeypatch.setattr(tracing, "record_function", counting)
+        tr = tracing.PhaseTracer(Registry())
+        span = tr.trace("quiet")
+        with span:
+            pass
+        assert made == [] and span._note is None
+        assert tr.snapshot("quiet")["count"] == 1
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with tr.trace("loud"):
+                pass
+        assert made == ["loud"]
+
+    def test_spans_nest_as_annotations(self, tmp_path):
+        tr = tracing.PhaseTracer(Registry())
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with tr.trace("outer"):
+                with tr.trace("inner"):
+                    pass
+        spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in _profiled(prof, tmp_path)}
+        (o0, o1), (i0, i1) = spans["outer"], spans["inner"]
+        assert o0 <= i0 <= i1 <= o1
+        assert tr.snapshot("outer")["count"] == tr.snapshot("inner")["count"] == 1
+
 
 class TestWiring:
     def test_plugin_phases_land_in_registry(self):
@@ -134,6 +208,83 @@ class TestWiring:
         plugin.pre_filter(pod)
         snap = plugin.tracer.snapshot("device_check")
         assert snap is not None and snap["count"] >= 1
+
+
+class TestTriageSpans:
+    def test_a_profiled_batch_holds_the_program_spans(self, tmp_path):
+        _, plugin = _triage_plugin()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = plugin.pre_filter_batch()
+        assert out["schedulable"] == {"default/p0": True}
+        names = [e["name"] for e in _profiled(prof, tmp_path)]
+        for phase in ("prefilter_batch", "batch_dedupe", "list_pods"):
+            assert phase in names, phase
+
+    def test_batch_handles_when_the_probe_declines(self, monkeypatch):
+        from kube_throttler_tpu_torch.plugin import KubeThrottler
+
+        _, plugin = _triage_plugin()
+        monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
+        out = plugin.pre_filter_batch()
+        assert out["schedulable"] == {"default/p0": True}
+        for phase in ("batch_dedupe", "list_pods", "batch_dispatch", "batch_handles"):
+            assert plugin.tracer.snapshot(phase)["count"] == 1, phase
+        assert (plugin.tracer.snapshot("batch_handles")["sum"]
+                <= plugin.tracer.snapshot("batch_dispatch")["sum"])
+
+    def test_device_trace_writes_the_program_spans(self, tmp_path):
+        _, plugin = _triage_plugin()
+        with tracing.device_trace(str(tmp_path)):
+            plugin.pre_filter_batch()
+        (path,) = tmp_path.glob("trace-*.json")
+        names = {e["name"] for e in _annotations(path)}
+        assert {"prefilter_batch", "batch_dedupe", "list_pods"} <= names
+
+
+def _outcomes(plugin):
+    return {key[0]: value for key, value in plugin.dedupe_outcomes.collect().items()}
+
+
+class TestDedupeOutcomes:
+    def test_served(self):
+        _, plugin = _triage_plugin()
+        plugin.pre_filter_batch()
+        plugin.pre_filter_batch()
+        assert _outcomes(plugin) == {"served": 2}
+
+    def test_declined_size(self, monkeypatch):
+        from kube_throttler_tpu_torch.plugin import KubeThrottler
+
+        _, plugin = _triage_plugin()
+        monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
+        plugin.pre_filter_batch()
+        assert _outcomes(plugin) == {"declined_size": 1}
+
+    def test_declined_mix(self):
+        _, plugin = _triage_plugin(pods=300)
+        out = plugin.pre_filter_batch()
+        assert len(out["schedulable"]) == 300
+        assert _outcomes(plugin) == {"declined_mix": 1}
+        assert plugin.tracer.snapshot("batch_handles")["count"] == 1
+
+    def test_no_probe_without_a_device(self):
+        store, plugin = _plugin()
+        store.create_pod(make_pod("p0", requests={"cpu": "1m"}))
+        out = plugin.pre_filter_batch()
+        assert out["schedulable"] == {"default/p0": True}
+        assert _outcomes(plugin) == {}
+        assert plugin.tracer.snapshot("list_pods")["count"] == 1  # the host oracle's
+
+    def test_families_in_the_exposition(self):
+        _, plugin = _triage_plugin()
+        plugin.pre_filter_batch()
+        text = plugin.metrics_registry.exposition()
+        assert 'kube_throttler_batch_dedupe_total{outcome="served"} 1' in text
+        assert "# TYPE kube_throttler_gc_pause_seconds_total counter" in text
+        assert "# TYPE kube_throttler_gc_collections_total counter" in text
+        for gen in range(3):
+            assert f'kube_throttler_gc_pause_seconds_total{{generation="{gen}"}}' in text
+            assert f'kube_throttler_gc_collections_total{{generation="{gen}"}}' in text
 
 
 class TestDebugFlagsEndpoint:
