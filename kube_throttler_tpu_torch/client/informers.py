@@ -163,6 +163,15 @@ class Indexer:
                 return [o for o in out if o is not None]
             return list(self._objects.values())
 
+    def count(self) -> int:
+        """How many keys the cache holds, in O(1) and without materialising
+        anything. In resolver mode a key whose resolver returns None is
+        counted but not listed, so the count can exceed ``len(list())``."""
+        with self._lock:
+            if self._resolver is not None:
+                return len(self._meta)
+            return len(self._objects)
+
     def keys(self) -> List[str]:
         with self._lock:
             if self._resolver is not None:

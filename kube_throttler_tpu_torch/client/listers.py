@@ -99,6 +99,10 @@ class PodLister:
     def list(self, predicate: Predicate = None) -> List[Pod]:
         return _filtered(self._indexer.list(), predicate)
 
+    def count(self) -> int:
+        """The pods in the informer's cache, none of them materialised."""
+        return self._indexer.count()
+
     def pods(self, namespace: str) -> PodNamespaceLister:
         return PodNamespaceLister(self._indexer, namespace)
 

@@ -90,7 +90,8 @@ METRIC_NAMES = frozenset(
         "kube_throttler_gc_pause_seconds_total",
         "kube_throttler_gc_collections_total",
         # pre_filter_batch's dedupe probe by outcome (plugin/plugin.py):
-        # served, declined_size (more pods than BATCH_DEDUPE_MAX_PODS) or
+        # served, declined_size (the pod informer counts more pods than
+        # BATCH_DEDUPE_MAX_PODS, read before any pod is listed) or
         # declined_mix (too few pods share a verdict fingerprint); served
         # over all three is the probe's useful share
         "kube_throttler_batch_dedupe_total",

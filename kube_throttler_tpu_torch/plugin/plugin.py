@@ -516,14 +516,17 @@ class KubeThrottler:
 
     def _list_pods(self) -> list:
         """Every pod of the informer's cache, each materialised from the
-        store: the one full listing of the batch-triage surfaces, traced
-        as ``list_pods``."""
+        store, traced as ``list_pods``: the listing of the dedupe probe
+        below its size gate, of the host oracle and of the accel-class
+        patch."""
         with self.tracer.trace("list_pods"):
             return self.listers.pods.list()
 
-    # dedupe is only attempted below this pod count: fingerprinting is
-    # O(P) host work, and past this scale the fused device kernel wins
-    # even against a perfectly degenerate mix
+    # dedupe is only attempted at or below this pod count: fingerprinting
+    # is O(P) host work, and past this scale the fused device kernel wins
+    # even against a perfectly degenerate mix. The gate reads the pod
+    # informer's count before anything is listed, so a declined call
+    # materialises no pod
     BATCH_DEDUPE_MAX_PODS = 50_000
 
     def _pre_filter_batch_dedupe(self, known_ns: set) -> Optional[dict]:
@@ -540,8 +543,12 @@ class KubeThrottler:
         (no Warning events), unknown-namespace pods land in ``errors``,
         ERROR evaluations route every group member to ``errors``."""
         dm, cache = self.device_manager, self.verdict_cache
+        if self.listers.pods.count() > self.BATCH_DEDUPE_MAX_PODS:
+            self.dedupe_outcomes.inc({"outcome": "declined_size"})
+            return None
         pods = self._list_pods()
         if len(pods) > self.BATCH_DEDUPE_MAX_PODS:
+            # pods added between the count and the listing
             self.dedupe_outcomes.inc({"outcome": "declined_size"})
             return None
         groups: dict = {}

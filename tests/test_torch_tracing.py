@@ -7,6 +7,7 @@ and the batch-triage surfaces' spans and counters."""
 import json
 import urllib.request
 
+import pytest
 import torch
 
 from kube_throttler_tpu_torch.api import (
@@ -227,8 +228,9 @@ class TestTriageSpans:
         monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
         out = plugin.pre_filter_batch()
         assert out["schedulable"] == {"default/p0": True}
-        for phase in ("batch_dedupe", "list_pods", "batch_dispatch", "batch_handles"):
-            assert plugin.tracer.snapshot(phase)["count"] == 1, phase
+        for phase in ("batch_dedupe", "batch_dispatch", "batch_handles"):
+            assert _count(plugin, phase) == 1, phase
+        assert _count(plugin, "list_pods") == 0  # the size gate reads the count
         assert (plugin.tracer.snapshot("batch_handles")["sum"]
                 <= plugin.tracer.snapshot("batch_dispatch")["sum"])
 
@@ -245,6 +247,33 @@ def _outcomes(plugin):
     return {key[0]: value for key, value in plugin.dedupe_outcomes.collect().items()}
 
 
+def _count(plugin, phase):
+    snap = plugin.tracer.snapshot(phase)
+    return 0 if snap is None else snap["count"]
+
+
+def _count_pod_reads(plugin, monkeypatch):
+    """Count the pod indexer's listings and its resolver's calls."""
+    indexer = plugin.listers.pods._indexer
+    calls = {"list": 0, "resolve": 0}
+    listing = indexer.list
+
+    def counting_list():
+        calls["list"] += 1
+        return listing()
+
+    monkeypatch.setattr(indexer, "list", counting_list)
+    if indexer._resolver is not None:
+        resolve = indexer._resolver
+
+        def counting_resolve(key):
+            calls["resolve"] += 1
+            return resolve(key)
+
+        monkeypatch.setattr(indexer, "_resolver", counting_resolve)
+    return calls
+
+
 class TestDedupeOutcomes:
     def test_served(self):
         _, plugin = _triage_plugin()
@@ -259,6 +288,55 @@ class TestDedupeOutcomes:
         monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
         plugin.pre_filter_batch()
         assert _outcomes(plugin) == {"declined_size": 1}
+
+    def test_declined_size_lists_no_pod(self, monkeypatch):
+        from kube_throttler_tpu_torch.plugin import KubeThrottler
+
+        _, plugin = _triage_plugin(pods=3)
+        calls = _count_pod_reads(plugin, monkeypatch)
+        monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
+        out = plugin.pre_filter_batch()
+        assert len(out["schedulable"]) == 3
+        assert _outcomes(plugin) == {"declined_size": 1}
+        assert calls == {"list": 0, "resolve": 0}
+        assert _count(plugin, "list_pods") == 0
+        assert _count(plugin, "batch_dispatch") == 1
+
+    def test_declined_size_when_the_listing_outgrows_the_count(self, monkeypatch):
+        """Pods created between the gate's count and the listing: the
+        listing's own length still declines the probe."""
+        from kube_throttler_tpu_torch.plugin import KubeThrottler
+
+        _, plugin = _triage_plugin(pods=3)
+        monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 2)
+        monkeypatch.setattr(plugin.listers.pods, "count", lambda: 0)
+        out = plugin.pre_filter_batch()
+        assert len(out["schedulable"]) == 3
+        assert _outcomes(plugin) == {"declined_size": 1}
+        assert _count(plugin, "list_pods") == 1 and _count(plugin, "batch_dispatch") == 1
+
+    def test_served_lists_once(self, monkeypatch):
+        _, plugin = _triage_plugin(pods=3)
+        calls = _count_pod_reads(plugin, monkeypatch)
+        out = plugin.pre_filter_batch()
+        assert len(out["schedulable"]) == 3
+        assert _outcomes(plugin) == {"served": 1}
+        assert calls["list"] == 1 and _count(plugin, "list_pods") == 1
+        assert calls["resolve"] == (3 if plugin.store.columnar else 0)
+        assert _count(plugin, "batch_dispatch") == 0
+
+    @pytest.mark.parametrize("pods", [1, 300])
+    def test_either_route_gives_the_same_verdicts(self, pods, monkeypatch):
+        from kube_throttler_tpu_torch.plugin import KubeThrottler
+
+        _, plugin = _triage_plugin(pods=pods)
+        by_default = plugin.pre_filter_batch()
+        monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
+        gated = plugin.pre_filter_batch()
+        assert _outcomes(plugin)["declined_size"] == 1
+        assert len(gated["schedulable"]) == pods
+        assert gated["schedulable"] == by_default["schedulable"]
+        assert sorted(gated["errors"]) == sorted(by_default["errors"])
 
     def test_declined_mix(self):
         _, plugin = _triage_plugin(pods=300)
