@@ -1406,6 +1406,9 @@ class DeviceStateManager:
         # deterministically (chaos tests drive the breaker through it)
         self.faults = None
         self.fallback_counter = None  # CounterVec set by the plugin
+        # check_batch_all's route counter and width gauge, set by the plugin
+        self.batch_route_counter = None
+        self.batch_width_gauge = None
         # {kind: ReservedResourceAmounts} wired by the plugin once the
         # controllers exist: lets _on_any_throttle replay standing
         # reservations onto freshly allocated columns (see there)
@@ -2916,19 +2919,28 @@ class DeviceStateManager:
         concurrent store event between them could yield a verdict matching
         no single point in time). Returns {kind: (counts, schedulable,
         row_map)}. The lock wait and the grab are traced as
-        ``batch_handles``."""
+        ``batch_handles``, each kind's launch as ``launch_throttle`` and
+        ``launch_clusterthrottle``; each kind's route goes to
+        ``last_batch_routes`` and the plugin's route counter, the gather's
+        width K (0 on the dense route) to the plugin's width gauge."""
         with self.tracer.trace("batch_handles"), self._lock:
             handles = {
                 kind: self._grab_batch_handles(kind, on_equal)
                 for kind in ("throttle", "clusterthrottle")
             }
-        self.last_batch_routes = {
+        routes = {
             kind: ("dense" if h[3] is None else "sparse") for kind, h in handles.items()
         }
+        self.last_batch_routes = routes
+        if self.batch_route_counter is not None:
+            for kind, h in handles.items():
+                self.batch_route_counter.inc({"kind": kind, "route": routes[kind]})
+                self.batch_width_gauge.set({"kind": kind}, 0 if h[3] is None else h[3].shape[1])
         out = {}
         for kind, (state, pods, mask, cols, step3, row_map) in handles.items():
-            counts, schedulable = self._dispatch_batch_check(
-                state, pods, mask, cols, on_equal, step3
-            )
+            with self.tracer.trace(f"launch_{kind}"):
+                counts, schedulable = self._dispatch_batch_check(
+                    state, pods, mask, cols, on_equal, step3
+                )
             out[kind] = (counts, schedulable, row_map)
         return out

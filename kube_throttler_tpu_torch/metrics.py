@@ -95,6 +95,13 @@ METRIC_NAMES = frozenset(
         # declined_mix (too few pods share a verdict fingerprint); served
         # over all three is the probe's useful share
         "kube_throttler_batch_dedupe_total",
+        # the batch check per throttle kind: the pods each kind's verdicts
+        # block, summed over merges (plugin/plugin.py _merge_verdicts); the
+        # route each kind took in check_batch_all (sparse or dense) and the
+        # gather's match width K, 0 on the dense route (engine/devicestate.py)
+        "kube_throttler_batch_blocked_pods_total",
+        "kube_throttler_batch_route_total",
+        "kube_throttler_batch_match_width",
         # crash-safety layer (register_recovery_metrics): snapshot cadence
         # + the last recovery's shape (engine/snapshot.py, engine/recovery.py)
         "kube_throttler_snapshot_total",

@@ -80,6 +80,12 @@ class KubeThrottler:
             "declined_size, declined_mix)",
             ["outcome"],
         )
+        self.batch_blocked_pods = self.metrics_registry.counter_vec(
+            "kube_throttler_batch_blocked_pods_total",
+            "pods a throttle kind's batch verdicts block, summed over batch "
+            "merges (pre_filter_batch, full_tick_sharded)",
+            ["kind"],
+        )
         # ORDER MATTERS: the device mirror registers its store handlers
         # FIRST so its rows/masks update before the informer fan-out reaches
         # the controllers' enqueues — a worker draining the key immediately
@@ -152,6 +158,18 @@ class KubeThrottler:
                 "dispatch failures that opened the device circuit breaker "
                 "(decisions/reconciles served host-side meanwhile)",
                 ["surface"],
+            )
+            self.device_manager.batch_route_counter = self.metrics_registry.counter_vec(
+                "kube_throttler_batch_route_total",
+                "check_batch_all calls by throttle kind and the route it took "
+                "(sparse: the gather kernel over [P,K] cols; dense)",
+                ["kind", "route"],
+            )
+            self.device_manager.batch_width_gauge = self.metrics_registry.gauge_vec(
+                "kube_throttler_batch_match_width",
+                "the gather route's match width K per throttle kind in the last "
+                "check_batch_all (0: the dense route)",
+                ["kind"],
             )
             register_breaker_metrics(self.metrics_registry, self.device_manager)
             register_kernel_metrics(self.metrics_registry)
@@ -600,8 +618,7 @@ class KubeThrottler:
         self.dedupe_outcomes.inc({"outcome": "served"})
         return {"schedulable": schedulable, "errors": errors}
 
-    @staticmethod
-    def _merge_verdicts(per_kind: dict, known_ns: set):
+    def _merge_verdicts(self, per_kind: dict, known_ns: set):
         """AND the per-kind schedulable verdicts per pod, then route pods of
         unknown namespaces to errors (the per-pod path returns ERROR for
         them, clusterthrottle_controller.go:273-276 — the batch surfaces
@@ -619,36 +636,47 @@ class KubeThrottler:
         pod informer's namespace index instead would make the
         never-schedulable invariant timing-dependent — a pod the device
         mirror has seen but the pod informer has not yet indexed would
-        slip through."""
+        slip through.
+
+        Traced per kind as ``merge_throttle`` / ``merge_clusterthrottle``
+        (the row-index gather, then the dict build or the flips and the
+        subset probe) and ``merge_ns_route``; each kind's blocked pods add
+        to ``kube_throttler_batch_blocked_pods_total{kind}``."""
         import numpy as np
 
         schedulable: dict = {}
         errors: list = []
-        for j, (ok, rows) in enumerate(per_kind.values()):
-            # one vectorized gather per kind instead of a scalar numpy
-            # index per pod (ok[row] costs ~µs each; at 100k pods the
-            # per-item form dominated the whole batch call)
-            idx = np.fromiter(rows.values(), dtype=np.int64, count=len(rows))
-            vals = ok[idx]
-            if j == 0:
-                schedulable = dict(zip(rows.keys(), vals.tolist()))
-                continue
-            keys_list = None  # built only when this kind changes anything
-            blocked = np.nonzero(~vals)[0]
-            if blocked.size:
-                keys_list = list(rows.keys())
-                for i in blocked.tolist():
-                    schedulable[keys_list[i]] = False
-            if not (rows.keys() <= schedulable.keys()):  # C-speed subset probe
-                if keys_list is None:
+        for j, (kind, (ok, rows)) in enumerate(per_kind.items()):
+            with self.tracer.trace(f"merge_{kind}"):
+                # one vectorized gather per kind instead of a scalar numpy
+                # index per pod (ok[row] costs ~µs each; at 100k pods the
+                # per-item form dominated the whole batch call)
+                idx = np.fromiter(rows.values(), dtype=np.int64, count=len(rows))
+                vals = ok[idx]
+                if j == 0:
+                    self.batch_blocked_pods.inc(
+                        {"kind": kind}, vals.size - int(np.count_nonzero(vals))
+                    )
+                    schedulable = dict(zip(rows.keys(), vals.tolist()))
+                    continue
+                keys_list = None  # built only when this kind changes anything
+                blocked = np.nonzero(~vals)[0]
+                self.batch_blocked_pods.inc({"kind": kind}, blocked.size)
+                if blocked.size:
                     keys_list = list(rows.keys())
-                for k, v in zip(keys_list, vals.tolist()):
-                    if k not in schedulable:
-                        schedulable[k] = v
-        bad = [k for k in schedulable if k.partition("/")[0] not in known_ns]
-        for key in bad:
-            del schedulable[key]
-            errors.append(key)
+                    for i in blocked.tolist():
+                        schedulable[keys_list[i]] = False
+                if not (rows.keys() <= schedulable.keys()):  # C-speed subset probe
+                    if keys_list is None:
+                        keys_list = list(rows.keys())
+                    for k, v in zip(keys_list, vals.tolist()):
+                        if k not in schedulable:
+                            schedulable[k] = v
+        with self.tracer.trace("merge_ns_route"):
+            bad = [k for k in schedulable if k.partition("/")[0] not in known_ns]
+            for key in bad:
+                del schedulable[key]
+                errors.append(key)
         return schedulable, errors
 
     def _apply_accel_class_overrides(self, schedulable: dict, errors: list) -> None:
@@ -659,7 +687,8 @@ class KubeThrottler:
         pods through the class-aware host oracle — the same route the
         single-pod ``check_throttled`` takes — and overwrite their
         rows in place. No accel thresholds mirrored ⇒ zero cost; otherwise
-        cost is O(accel-class pods), not O(P)."""
+        it lists every stored pod (O(P) materialisations) and runs the host
+        oracle for the accel-class ones among them."""
         dm = self.device_manager
         if dm is None or not (
             dm.has_accel_thresholds("throttle")

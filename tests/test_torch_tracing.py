@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from kube_throttler_tpu_torch.api import (
+    ClusterThrottle,
+    ClusterThrottleSelector,
+    ClusterThrottleSelectorTerm,
+    ClusterThrottleSpec,
     LabelSelector,
     ResourceAmount,
     Throttle,
@@ -363,6 +367,195 @@ class TestDedupeOutcomes:
         for gen in range(3):
             assert f'kube_throttler_gc_pause_seconds_total{{generation="{gen}"}}' in text
             assert f'kube_throttler_gc_collections_total{{generation="{gen}"}}' in text
+
+
+def _kinds_plugin(use_device=True):
+    """A device-backed plugin (on the CPU) over both kinds: 4 namespaces
+    labelled ``team`` and ``env``, 8 pods each (6 Running and bound), one
+    Throttle a namespace (ns-0's holds 3 pods, so its pods are blocked),
+    and 24 ClusterThrottles of two OR-ed terms, ``namespaceSelector`` ∧
+    ``podSelector`` then ``namespaceSelector`` alone (c0 and c1 hold a
+    1-cpu threshold, the rest are open). A pod matches at most 4 of them,
+    so the kind takes the gather route. One pod lies in a namespace with
+    no Namespace object."""
+    store, plugin = _plugin(use_device=use_device)
+    for n in range(4):
+        store.create_namespace(
+            Namespace(f"ns-{n}", labels={"team": f"team-{n}", "env": f"env-{n % 2}"})
+        )
+        store.create_throttle(
+            Throttle(
+                name="t",
+                namespace=f"ns-{n}",
+                spec=ThrottleSpec(
+                    throttler_name="kube-throttler",
+                    threshold=ResourceAmount.of(pod=3 if n == 0 else 1000),
+                    selector=ThrottleSelector(
+                        selector_terms=(ThrottleSelectorTerm(LabelSelector()),)
+                    ),
+                ),
+            )
+        )
+    for c in range(24):
+        store.create_cluster_throttle(
+            ClusterThrottle(
+                name=f"c{c}",
+                spec=ClusterThrottleSpec(
+                    throttler_name="kube-throttler",
+                    threshold=ResourceAmount.of(
+                        requests={"cpu": "1" if c < 2 else "1000"}
+                    ),
+                    selector=ClusterThrottleSelector(
+                        selector_terms=(
+                            ClusterThrottleSelectorTerm(
+                                pod_selector=LabelSelector(
+                                    match_labels={"tier": f"tier-{c // 4}"}
+                                ),
+                                namespace_selector=LabelSelector(
+                                    match_labels={"team": f"team-{c % 4}"}
+                                ),
+                            ),
+                            ClusterThrottleSelectorTerm(
+                                namespace_selector=LabelSelector(
+                                    match_labels={"team": f"team-{c % 4}",
+                                                  "env": f"env-{c // 12}"}
+                                ),
+                            ),
+                        )
+                    ),
+                ),
+            )
+        )
+    for n in range(4):
+        for i in range(8):
+            running = i < 6
+            store.create_pod(
+                make_pod(
+                    f"p{i}", namespace=f"ns-{n}", labels={"tier": f"tier-{i % 4}"},
+                    requests={"cpu": f"{100 * (i + 1)}m"},
+                    node_name="node-0" if running else "",
+                    phase="Running" if running else "Pending",
+                )
+            )
+    store.create_pod(make_pod("stray", namespace="ns-gone", requests={"cpu": "1m"}))
+    plugin.run_pending_once()
+    return store, plugin
+
+
+@pytest.fixture
+def kinds(monkeypatch):
+    """``_kinds_plugin``'s plugin with the dedupe probe declining, so the
+    batch takes the device dispatch and the merge."""
+    monkeypatch.setattr(KubeThrottler, "BATCH_DEDUPE_MAX_PODS", 0)
+    _, plugin = _kinds_plugin()
+    yield plugin
+    plugin.stop()
+
+
+def _spans(events, name):
+    return [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == name]
+
+
+def _inside(child, parent) -> bool:
+    return parent[0] <= child[0] and child[1] <= parent[1]
+
+
+def _kind_verdicts(plugin):
+    """{kind: (schedulable bool[] over the row map's pods)} of a fresh
+    ``check_batch_all`` on the same state."""
+    import numpy as np
+
+    out = {}
+    for kind, (_, ok, rows) in plugin.device_manager.check_batch_all(False).items():
+        out[kind] = ok.cpu().numpy()[np.fromiter(rows.values(), dtype=np.int64)]
+    return out
+
+
+MERGE_SPANS = ("merge_throttle", "merge_clusterthrottle", "merge_ns_route")
+LAUNCH_SPANS = ("launch_throttle", "launch_clusterthrottle")
+
+
+class TestBatchKindSpans:
+    def test_merge_spans_nest_in_batch_merge(self, kinds, tmp_path):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = kinds.pre_filter_batch()
+        assert out["errors"] == ["ns-gone/stray"]
+        events = _profiled(prof, tmp_path)
+        (merge,) = _spans(events, "batch_merge")
+        for name in MERGE_SPANS:
+            (span,) = _spans(events, name)
+            assert _inside(span, merge), name
+        total = sum(kinds.tracer.snapshot(name)["sum"] for name in MERGE_SPANS)
+        assert total <= kinds.tracer.snapshot("batch_merge")["sum"]
+
+    def test_launch_spans_nest_in_batch_dispatch(self, kinds, tmp_path):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            kinds.pre_filter_batch()
+        events = _profiled(prof, tmp_path)
+        (dispatch,) = _spans(events, "batch_dispatch")
+        for name in LAUNCH_SPANS:
+            (span,) = _spans(events, name)
+            assert _inside(span, dispatch), name
+            assert _count(kinds, name) == 1
+
+    def test_merge_spans_under_the_full_tick(self, kinds, tmp_path):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = kinds.full_tick_sharded(1)
+        assert out["errors"] == ["ns-gone/stray"]
+        events = _profiled(prof, tmp_path)
+        (tick,) = _spans(events, "full_tick")
+        assert not _spans(events, "batch_merge")
+        for name in MERGE_SPANS:
+            (span,) = _spans(events, name)
+            assert _inside(span, tick), name
+
+    def test_blocked_pods_count_each_kinds_false_verdicts(self, kinds):
+        kinds.pre_filter_batch()
+        got = {key[0]: v for key, v in kinds.batch_blocked_pods.collect().items()}
+        want = {kind: int((~ok).sum()) for kind, ok in _kind_verdicts(kinds).items()}
+        assert got == want
+        assert want["throttle"] > 0 and want["clusterthrottle"] > 0
+        kinds.pre_filter_batch()
+        got = {key[0]: v for key, v in kinds.batch_blocked_pods.collect().items()}
+        assert got == {kind: 2 * n for kind, n in want.items()}
+
+    def test_route_counter_and_width_gauge(self, kinds):
+        kinds.pre_filter_batch()
+        dm = kinds.device_manager
+        routes = {key: v for key, v in dm.batch_route_counter.collect().items()}
+        assert routes == {(kind, route): 1 for kind, route in dm.last_batch_routes.items()}
+        assert dm.last_batch_routes["clusterthrottle"] == "sparse"
+        widths = {key[0]: v for key, v in dm.batch_width_gauge.collect().items()}
+        for kind in ("throttle", "clusterthrottle"):
+            ks = getattr(dm, kind)
+            assert widths[kind] == (ks._cols_K if ks.device_cols() is not None else 0)
+        assert widths["clusterthrottle"] >= 4
+
+    def test_families_in_the_exposition(self, kinds):
+        kinds.pre_filter_batch()
+        text = kinds.metrics_registry.exposition()
+        for kind in ("throttle", "clusterthrottle"):
+            assert f'kube_throttler_batch_blocked_pods_total{{kind="{kind}"}}' in text
+            assert f'kube_throttler_batch_match_width{{kind="{kind}"}}' in text
+        assert 'kube_throttler_batch_route_total{kind="clusterthrottle",route="sparse"} 1' in text
+
+    def test_verdicts_are_the_same_with_the_tracer_on_and_off(self, kinds):
+        traced = kinds.pre_filter_batch()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            profiled = kinds.pre_filter_batch()
+        kinds.tracer = kinds.device_manager.tracer = tracing.NoopTracer()
+        untraced = kinds.pre_filter_batch()
+        assert traced == profiled == untraced
+        assert kinds.tracer.snapshot("batch_merge") is None
+        sched = traced["schedulable"]
+        assert len(sched) == 32 and 0 < sum(sched.values()) < 32
+
+    def test_device_verdicts_equal_the_host_oracle(self, kinds):
+        _, host = _kinds_plugin(use_device=False)
+        try:
+            assert kinds.pre_filter_batch() == host.pre_filter_batch()
+        finally:
+            host.stop()
 
 
 class TestDebugFlagsEndpoint:
