@@ -2717,10 +2717,23 @@ class DeviceStateManager:
             results.append(res)
         return results
 
+    @property
+    def row_table_build_counter(self):
+        """``kube_throttler_pod_row_table_builds_total{kind}``, set by the
+        plugin: each kind's index counts its row-table builds into it."""
+        return self.throttle.index.row_table_build_counter
+
+    @row_table_build_counter.setter
+    def row_table_build_counter(self, counter) -> None:
+        for ks in (self.throttle, self.clusterthrottle):
+            ks.index.row_table_build_counter = counter
+
     def _grab_batch_handles(self, kind: str, on_equal: bool):
         """Under the caller's lock: one kind's immutable device handles +
         decode table for a batch check. ``cols`` is the sparse [P,K]
-        companion of the mask (None ⇒ dense kernel)."""
+        companion of the mask (None ⇒ dense kernel); the decode table is
+        the index's ``PodRowTable``, shared until a pod key enters or
+        leaves the index, not a copy per call."""
         ks = self.throttle if kind == "throttle" else self.clusterthrottle
         state = ks.device_state()
         # the gather path never reads the [P,T] device mask — skip its
@@ -2730,7 +2743,7 @@ class DeviceStateManager:
         if cols is None:
             pods, mask = ks.device_pods(need_mask=True)
         step3 = True if kind == "throttle" else on_equal
-        return state, pods, mask, cols, step3, dict(ks.index._pod_rows)
+        return state, pods, mask, cols, step3, ks.index.pod_row_table()
 
     @staticmethod
     def _dispatch_batch_check(state, pods, mask, cols, on_equal, step3):
@@ -2849,7 +2862,8 @@ class DeviceStateManager:
         """Under the caller's lock: one kind's tick inputs. Device handles
         (pods, the sparse cols or the dense mask, counted), host copies of
         the reservation and validity planes, the spec per column, and the
-        row/col decode maps."""
+        row/col decode maps (the row map is the index's shared, immutable
+        ``PodRowTable``)."""
         # the sparse [P,K] cols companion is preferred: the tick then needs
         # no [P,T] tensor at all; ``dense_mesh`` forces the dense program,
         # and small states whose cols ladder opted out run dense regardless
@@ -2874,7 +2888,7 @@ class DeviceStateManager:
             thr_valid=ks.thr_valid.copy(),
             specs=specs,
             tcap=ks.tcap,
-            row_map=dict(ks.index._pod_rows),
+            row_map=ks.index.pod_row_table(),
             col_map={c: t.key for c, t in ks.index._col_thrs.items()},
         )
 

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
+from collections.abc import Mapping
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -74,13 +75,73 @@ _SENT = np.iinfo(np.int32).max
 class _Interner:
     def __init__(self) -> None:
         self._ids: Dict[str, int] = {}
+        self._by_id: List[str] = []
 
     def id_of(self, value: str) -> int:
         idx = self._ids.get(value)
         if idx is None:
             idx = len(self._ids)
             self._ids[value] = idx
+            self._by_id.append(value)
         return idx
+
+    def value_of(self, idx: int) -> str:
+        return self._by_id[idx]
+
+
+class PodRowTable(Mapping):
+    """One version of an index's pod rows, never written once built.
+
+    ``pod_keys`` is the pod-key tuple in the index's row-map order,
+    ``rows`` each key's row (read-only int64), ``ns_codes`` each key's
+    namespace as a code into ``ns_names`` (read-only int32), which names
+    only the namespaces that hold a pod of the table; the namespace is the
+    key's own ``namespace/`` prefix. As a read-only mapping it is
+    the ``{pod_key: row}`` dict the batch surfaces handed out before it
+    (built from the table on first use, once per table), so callers that
+    read a row map as a dict read this unchanged. ``filled`` hands out a
+    fresh ``{pod_key: value}`` dict, copied from one built once per table."""
+
+    __slots__ = ("version", "pod_keys", "rows", "ns_codes", "ns_names", "_map", "_filled")
+
+    def __init__(self, version: int, pod_keys: tuple, rows: np.ndarray,
+                 ns_codes: np.ndarray, ns_names: tuple):
+        rows.flags.writeable = False
+        ns_codes.flags.writeable = False
+        self.version = version
+        self.pod_keys = pod_keys
+        self.rows = rows
+        self.ns_codes = ns_codes
+        self.ns_names = ns_names
+        self._map: Optional[Dict[str, int]] = None
+        self._filled: Dict[bool, Dict[str, bool]] = {}
+
+    # both lazy builds below read only the table's own immutable fields,
+    # so two threads racing there build equal dicts and either one may win
+
+    def _mapping(self) -> Dict[str, int]:
+        m = self._map
+        if m is None:
+            m = self._map = dict(zip(self.pod_keys, self.rows.tolist()))
+        return m
+
+    def filled(self, value: bool) -> Dict[str, bool]:
+        """A new ``{pod_key: value}`` dict over every key, in table order:
+        a copy of one built on the first call for ``value`` (a copy takes
+        over the built hash table whole; building hashes every key)."""
+        base = self._filled.get(value)
+        if base is None:
+            base = self._filled[value] = dict.fromkeys(self.pod_keys, value)
+        return base.copy()
+
+    def __getitem__(self, key: str) -> int:
+        return self._mapping()[key]
+
+    def __iter__(self):
+        return iter(self.pod_keys)
+
+    def __len__(self) -> int:
+        return len(self.pod_keys)
 
 
 def _simple_terms(thr: AnyThrottle) -> Optional[List[Tuple[Dict[str, str], Dict[str, str]]]]:
@@ -110,6 +171,8 @@ class SelectorIndex:
         "_probe_cache": "self._lock",
         "_gen": "self._lock",
         "_pod_rows": "self._lock",
+        "_pod_rows_version": "self._lock",
+        "_pod_row_table": "self._lock",
         "_row_pods": "self._lock",
         "_row_keys": "self._lock",
         "_row_ns_names": "self._lock",
@@ -172,6 +235,14 @@ class SelectorIndex:
 
         # pods
         self._pod_rows: Dict[str, int] = {}
+        # the pod-set version: moves when a key enters or leaves
+        # ``_pod_rows`` (never on a modify that keeps the key), and the
+        # row table built for it (``pod_row_table``)
+        self._pod_rows_version = 0
+        self._pod_row_table: Optional[PodRowTable] = None
+        # the plugin's kube_throttler_pod_row_table_builds_total (wired
+        # through the device mirror); None outside a plugin
+        self.row_table_build_counter = None
         # row → retained event object (LEGACY/standalone mode only: with a
         # pod_resolver the index retains no objects and the three light
         # row-meta dicts below carry what matching needs — the key, the
@@ -378,6 +449,7 @@ class SelectorIndex:
                 while row >= self._pcap:
                     self._grow_pods_locked()
             self._pod_rows[pod.key] = row
+            self._pod_rows_version += 1
         if self.pod_resolver is None:
             prev = self._row_pods.get(row)
             if prev is not None and prev is not pod:
@@ -465,6 +537,7 @@ class SelectorIndex:
             row = self._pod_rows.pop(pod_key, None)
             if row is None:
                 return
+            self._pod_rows_version += 1
             self._row_pods.pop(row, None)
             self._row_keys.pop(row, None)
             self._row_ns_names.pop(row, None)
@@ -960,6 +1033,34 @@ class SelectorIndex:
             if row is None or col is None:
                 return False
             return self.row_has_col(row, col)
+
+    def pod_row_table(self) -> PodRowTable:
+        """The row table of the current pod-set version: built on the first
+        call after a key entered or left the index, then shared until the
+        next such change. A modify that keeps the key keeps the table.
+        Nothing in a table is written after it is handed out, so a holder
+        reads one point in the event stream outside the lock."""
+        with self._lock:
+            table = self._pod_row_table
+            if table is None or table.version != self._pod_rows_version:
+                rows = np.fromiter(
+                    self._pod_rows.values(), dtype=np.int64, count=len(self._pod_rows)
+                )
+                # each row's namespace id (set when its key took the row,
+                # from the pod's namespace, which is the key's prefix),
+                # renumbered over the namespaces that hold a pod now: the
+                # table names no namespace whose pods are all gone
+                ns_ids = self._pod_ns[rows]
+                present = np.flatnonzero(np.bincount(ns_ids))
+                codes = np.zeros(present[-1] + 1 if present.size else 0, dtype=np.int32)
+                codes[present] = np.arange(present.size, dtype=np.int32)
+                table = self._pod_row_table = PodRowTable(
+                    self._pod_rows_version, tuple(self._pod_rows), rows, codes[ns_ids],
+                    tuple(self._ns_ids.value_of(i) for i in present.tolist()),
+                )
+                if self.row_table_build_counter is not None:
+                    self.row_table_build_counter.inc({"kind": self.kind})
+            return table
 
     def pod_row(self, pod_key: str) -> Optional[int]:
         with self._lock:

@@ -102,6 +102,9 @@ METRIC_NAMES = frozenset(
         "kube_throttler_batch_blocked_pods_total",
         "kube_throttler_batch_route_total",
         "kube_throttler_batch_match_width",
+        # each kind's pod-row table builds, one per pod-set version
+        # (engine/index.py pod_row_table)
+        "kube_throttler_pod_row_table_builds_total",
         # crash-safety layer (register_recovery_metrics): snapshot cadence
         # + the last recovery's shape (engine/snapshot.py, engine/recovery.py)
         "kube_throttler_snapshot_total",

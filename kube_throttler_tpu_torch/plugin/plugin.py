@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import logging
 import os
+from itertools import compress
 from typing import List, Optional, Sequence
 
 import torch
@@ -169,6 +170,13 @@ class KubeThrottler:
                 "kube_throttler_batch_match_width",
                 "the gather route's match width K per throttle kind in the last "
                 "check_batch_all (0: the dense route)",
+                ["kind"],
+            )
+            self.device_manager.row_table_build_counter = self.metrics_registry.counter_vec(
+                "kube_throttler_pod_row_table_builds_total",
+                "pod-row tables built per throttle kind: one per pod-set "
+                "version, shared by every batch check and tick until a pod "
+                "key enters or leaves the index",
                 ["kind"],
             )
             register_breaker_metrics(self.metrics_registry, self.device_manager)
@@ -624,59 +632,63 @@ class KubeThrottler:
         them, clusterthrottle_controller.go:273-276 — the batch surfaces
         must never report them schedulable). Shared by pre_filter_batch and
         full_tick_sharded so the two surfaces cannot drift. ``per_kind``
-        maps kind → (schedulable bool[P] host array, row → pod-key map).
+        maps kind → (schedulable bool[P] host array, the index's
+        ``PodRowTable``).
 
-        Merge shape: the first kind's verdicts build the result dict in one
-        C-speed ``dict(zip(...))``; later kinds only FLIP the rows they
-        block (np.nonzero of the inverted verdicts — blocked pods are the
-        sparse case) plus a subset check for pods the first kind didn't
-        carry. The former per-pod Python AND (2×100k dict ops) measured
-        ~60ms of every full-scale batch call. The namespace routing stays
-        key-derived (one partition per verdict key): deriving it from the
-        pod informer's namespace index instead would make the
-        never-schedulable invariant timing-dependent — a pod the device
-        mirror has seen but the pod informer has not yet indexed would
-        slip through.
+        The namespace routing stays key-derived (a key's ``namespace/``
+        prefix): deriving it from the pod informer's namespace index
+        instead would make the never-schedulable invariant
+        timing-dependent — a pod the device mirror has seen but the pod
+        informer has not yet indexed would slip through.
 
-        Traced per kind as ``merge_throttle`` / ``merge_clusterthrottle``
-        (the row-index gather, then the dict build or the flips and the
-        subset probe) and ``merge_ns_route``; each kind's blocked pods add
-        to ``kube_throttler_batch_blocked_pods_total{kind}``."""
+        Every kind's table holds the same key tuple: the device mirror
+        applies each pod event to both kinds' indexes in one order under
+        one lock, and both surfaces take both tables under one hold. Each
+        kind's ``ok`` is gathered through its own row array
+        (``merge_{kind}``: the gather, the AND and the blocked count, added
+        to ``kube_throttler_batch_blocked_pods_total{kind}``), then the
+        table's namespace codes select the pods of known namespaces
+        (``merge_ns_route``: a mask over the table's namespace names, and
+        the result and error builds). With every namespace known, the
+        result is the table's keys filled with the verdict most pods
+        share, then the other verdict written for the rest: a copy and at
+        most P/2 stores, against hashing every key into a new dict. Every
+        call builds a fresh result dict and error list; the tables carry
+        keys, rows and namespaces only, never a verdict."""
         import numpy as np
 
-        schedulable: dict = {}
-        errors: list = []
-        for j, (kind, (ok, rows)) in enumerate(per_kind.items()):
+        tables = [rows for _, rows in per_kind.values()]
+        if any(t.pod_keys != tables[0].pod_keys for t in tables[1:]):
+            raise RuntimeError(
+                "batch merge: the kinds' pod-row tables hold different pod keys"
+            )
+        combined = table = None
+        for kind, (ok, rows) in per_kind.items():
             with self.tracer.trace(f"merge_{kind}"):
-                # one vectorized gather per kind instead of a scalar numpy
-                # index per pod (ok[row] costs ~µs each; at 100k pods the
-                # per-item form dominated the whole batch call)
-                idx = np.fromiter(rows.values(), dtype=np.int64, count=len(rows))
-                vals = ok[idx]
-                if j == 0:
-                    self.batch_blocked_pods.inc(
-                        {"kind": kind}, vals.size - int(np.count_nonzero(vals))
-                    )
-                    schedulable = dict(zip(rows.keys(), vals.tolist()))
-                    continue
-                keys_list = None  # built only when this kind changes anything
-                blocked = np.nonzero(~vals)[0]
-                self.batch_blocked_pods.inc({"kind": kind}, blocked.size)
-                if blocked.size:
-                    keys_list = list(rows.keys())
-                    for i in blocked.tolist():
-                        schedulable[keys_list[i]] = False
-                if not (rows.keys() <= schedulable.keys()):  # C-speed subset probe
-                    if keys_list is None:
-                        keys_list = list(rows.keys())
-                    for k, v in zip(keys_list, vals.tolist()):
-                        if k not in schedulable:
-                            schedulable[k] = v
+                vals = ok[rows.rows]
+                self.batch_blocked_pods.inc(
+                    {"kind": kind}, vals.size - int(np.count_nonzero(vals))
+                )
+                if combined is None:
+                    combined, table = vals, rows
+                else:
+                    combined &= vals
         with self.tracer.trace("merge_ns_route"):
-            bad = [k for k in schedulable if k.partition("/")[0] not in known_ns]
-            for key in bad:
-                del schedulable[key]
-                errors.append(key)
+            names = table.ns_names
+            known = np.fromiter((n in known_ns for n in names), dtype=bool, count=len(names))
+            keep = known[table.ns_codes]
+            if keep.all():
+                most = 2 * int(np.count_nonzero(combined)) >= combined.size
+                schedulable = table.filled(most)
+                keys, rest = table.pod_keys, not most
+                for i in np.flatnonzero(combined != most).tolist():
+                    schedulable[keys[i]] = rest
+                return schedulable, []
+            keep_list = keep.tolist()
+            schedulable = dict(
+                zip(compress(table.pod_keys, keep_list), compress(combined.tolist(), keep_list))
+            )
+            errors = list(compress(table.pod_keys, (~keep).tolist()))
         return schedulable, errors
 
     def _apply_accel_class_overrides(self, schedulable: dict, errors: list) -> None:

@@ -249,3 +249,216 @@ def test_unported_paths_raise(monkeypatch):
     assert port.device_manager.breaker_state() == "closed"
     ref.stop()
     port.stop()
+
+
+# ------------------------------------------------------------ the merge
+#
+# ``_merge_verdicts`` works on both kinds' row tables, which hold one key
+# tuple. It is held to the merge as it stood before the row tables, over
+# plain dict copies of the row maps.
+
+
+def _reference_merge(per_kind, known_ns):
+    """The oracle: the first kind's dict, the later kinds' flips and
+    subset probe, then one partition per key for the namespace routing."""
+    import numpy as np
+
+    schedulable, errors = {}, []
+    for j, (ok, rows) in enumerate(per_kind.values()):
+        rows = dict(rows)
+        vals = ok[np.fromiter(rows.values(), dtype=np.int64, count=len(rows))]
+        if j == 0:
+            schedulable = dict(zip(rows.keys(), vals.tolist()))
+            continue
+        keys_list = list(rows.keys())
+        for i in np.nonzero(~vals)[0].tolist():
+            schedulable[keys_list[i]] = False
+        for k, v in zip(keys_list, vals.tolist()):
+            if k not in schedulable:
+                schedulable[k] = v
+    for key in [k for k in schedulable if k.partition("/")[0] not in known_ns]:
+        del schedulable[key]
+        errors.append(key)
+    return schedulable, errors
+
+
+def _assert_merge_is_the_reference(got, per_kind, known_ns):
+    want = _reference_merge(per_kind, known_ns)
+    assert got == want
+    assert list(got[0]) == list(want[0])  # the same key order too
+
+
+@pytest.fixture
+def merger():
+    """A plugin without a device: ``_merge_verdicts`` needs only its tracer
+    and counters."""
+    plugin = tplugin.KubeThrottler(
+        tplugin.decode_plugin_args(ARGS), tstore.Store(), use_device=False,
+    )
+    yield plugin
+    plugin.stop()
+
+
+def _kind_indexes(rng, order):
+    """Both kinds' indexes over one seeded pod set with churn (removes and
+    free-row reuse). ``same``: both see the same events, as the device
+    mirror's are; ``shuffled``: the second kind sees the inserts in another
+    order; ``extra``: the second kind also holds pods the first does not;
+    ``fewer``: the second kind misses some of the first's."""
+    from kube_throttler_tpu_torch.api.pod import make_pod
+    from kube_throttler_tpu_torch.engine.index import SelectorIndex
+
+    pods = [make_pod(f"p{i}", namespace=f"ns-{rng.randrange(6)}") for i in range(60)]
+    gone = rng.sample([p.key for p in pods[:40]], 9)
+    late = [make_pod(f"late{i}", namespace=f"ns-{rng.randrange(6)}") for i in range(5)]
+    indexes = []
+    for j in range(2):
+        index = SelectorIndex("throttle" if j == 0 else "clusterthrottle")
+        ordered = list(pods)
+        if j == 1 and order == "shuffled":
+            rng.shuffle(ordered)
+        index.upsert_pods_batch(ordered[:40])
+        for key in gone:
+            index.remove_pod(key)
+        index.upsert_pods_batch(ordered[40:] + late)
+        if j == 1 and order == "fewer":
+            for pod in late[:3]:
+                index.remove_pod(pod.key)
+        if j == 1 and order == "extra":
+            index.upsert_pods_batch(
+                [make_pod(f"x{i}", namespace=f"ns-{rng.randrange(6)}") for i in range(7)]
+            )
+        indexes.append(index)
+    return indexes
+
+
+def _random_per_kind(indexes, nprng, blocked):
+    per_kind = {}
+    for index in indexes:
+        ok = nprng.random(index.capacities[0]) > blocked
+        per_kind[index.kind] = (ok, index.pod_row_table())
+    return per_kind
+
+
+@pytest.mark.parametrize("seed", range(9))
+@pytest.mark.parametrize("known", ["all", "some"])
+def test_merge_equals_the_reference(merger, seed, known):
+    import numpy as np
+
+    rng = random.Random(seed)
+    indexes = _kind_indexes(rng, "same")
+    known_ns = {f"ns-{n}" for n in range(6)}
+    if known == "some":
+        known_ns -= {"ns-1", "ns-4"}
+    nprng = np.random.default_rng(seed)
+    for _ in range(2):  # the second call reuses the tables, with new verdicts
+        # the verdict most pods share is True at seeds 0, 3, 6, False else
+        per_kind = _random_per_kind(indexes, nprng, (0.15, 0.5, 0.7)[seed % 3])
+        got = merger._merge_verdicts(per_kind, known_ns)
+        _assert_merge_is_the_reference(got, per_kind, known_ns)
+        assert (len(got[1]) > 0) == (known == "some")
+        assert 0 < sum(got[0].values()) < len(got[0])
+
+
+@pytest.mark.parametrize("order", ["shuffled", "extra", "fewer"])
+def test_tables_of_different_keys_are_refused(merger, order):
+    """Indexes that saw different pod events cannot be merged row by row:
+    the merge raises rather than pair one kind's verdict with another pod."""
+    import numpy as np
+
+    indexes = _kind_indexes(random.Random(order), order)
+    per_kind = _random_per_kind(indexes, np.random.default_rng(0), 0.3)
+    with pytest.raises(RuntimeError, match="different pod keys"):
+        merger._merge_verdicts(per_kind, {f"ns-{n}" for n in range(6)})
+
+
+def _spy_merge(monkeypatch, plugin):
+    """Hold every merge the plugin makes to the reference on its own
+    inputs; returns the list of the merges' inputs and outputs."""
+    seen = []
+    merge = plugin._merge_verdicts
+
+    def spy(per_kind, known_ns):
+        got = merge(per_kind, known_ns)
+        _assert_merge_is_the_reference(got, per_kind, known_ns)
+        seen.append((per_kind, set(known_ns), got))
+        return got
+
+    monkeypatch.setattr(plugin, "_merge_verdicts", spy)
+    return seen
+
+
+def _row_table_builds(plugin):
+    counter = plugin.device_manager.row_table_build_counter
+    return {key[0]: v for key, v in counter.collect().items()}
+
+
+def test_namespaces_created_and_deleted_between_calls_are_routed_afresh(monkeypatch):
+    from kube_throttler_tpu_torch.api.pod import Namespace, make_pod
+
+    monkeypatch.setenv("KT_VERDICT_CACHE", "0")
+    port = build_stack(tser, tstore, tplugin, tclock, device="cpu")
+    try:
+        seen = _spy_merge(monkeypatch, port)
+        store = port.store
+        assert port.pre_filter_batch()["errors"] == []
+        new = [make_pod(f"d{i}", namespace="ns-d", requests={"cpu": "100m"}) for i in range(4)]
+        for pod in new:
+            store.create_pod(pod)
+        port.run_pending_once()
+        out = port.pre_filter_batch()
+        assert out["errors"] == [p.key for p in new]
+        builds = _row_table_builds(port)
+
+        # the namespace appears: its pods are routed by the next call, with
+        # no pod event and so no new table
+        store.create_namespace(Namespace("ns-d"))
+        out = port.pre_filter_batch()
+        assert out["errors"] == [] and all(p.key in out["schedulable"] for p in new)
+        # a namespace goes: its pods become errors on the next call
+        store.delete_namespace("ns-b")
+        out = port.pre_filter_batch()
+        gone = [k for k in seen[-1][0]["throttle"][1] if k.startswith("ns-b/")]
+        assert gone and out["errors"] == gone
+        assert not any(k in out["schedulable"] for k in gone)
+        assert _row_table_builds(port) == builds
+        assert len(seen) == 4
+    finally:
+        port.stop()
+
+
+def test_a_pod_added_between_calls_rebuilds_the_tables(monkeypatch):
+    from kube_throttler_tpu_torch.api.pod import make_pod
+
+    monkeypatch.setenv("KT_VERDICT_CACHE", "0")
+    port = build_stack(tser, tstore, tplugin, tclock, device="cpu")
+    try:
+        seen = _spy_merge(monkeypatch, port)
+        first = port.pre_filter_batch()
+        builds = _row_table_builds(port)
+        assert port.pre_filter_batch() == first and _row_table_builds(port) == builds
+        port.store.create_pod(make_pod("added", namespace="ns-a", requests={"cpu": "100m"}))
+        port.run_pending_once()
+        out = port.pre_filter_batch()
+        assert _row_table_builds(port) == {k: v + 1 for k, v in builds.items()}
+        assert set(out["schedulable"]) == set(first["schedulable"]) | {"ns-a/added"}
+        assert out["schedulable"] == _host_oracle(port)
+        tables = [rows for _, rows in seen[-1][0].values()]
+        assert tables[0] is not tables[1] and tables[0].pod_keys == tables[1].pod_keys
+        assert len(seen) == 3
+    finally:
+        port.stop()
+
+
+def test_full_tick_merges_the_row_tables(monkeypatch):
+    monkeypatch.setenv("KT_VERDICT_CACHE", "0")
+    port = build_stack(tser, tstore, tplugin, tclock, device="cpu")
+    try:
+        seen = _spy_merge(monkeypatch, port)
+        tick = port.full_tick_sharded(1)
+        batch = port.pre_filter_batch()
+        assert tick["errors"] == batch["errors"] == []
+        assert tick["schedulable"] == batch["schedulable"] == _host_oracle(port)
+        assert len(seen) == 2
+    finally:
+        port.stop()

@@ -509,6 +509,36 @@ class TestBatchKindSpans:
             (span,) = _spans(events, name)
             assert _inside(span, tick), name
 
+    def test_batch_handles_wraps_the_row_table_grab(self, kinds, tmp_path, monkeypatch):
+        """Each kind's row table is taken inside ``batch_handles``, on a
+        call that builds it (a pod came in) and on one that reuses it."""
+        from kube_throttler_tpu_torch.engine.index import SelectorIndex
+
+        grab = SelectorIndex.pod_row_table
+
+        def marked(index):
+            with torch.profiler.record_function(f"row_table_{index.kind}"):
+                return grab(index)
+
+        monkeypatch.setattr(SelectorIndex, "pod_row_table", marked)
+        kinds.pre_filter_batch()
+        kinds.store.create_pod(make_pod("late", namespace="ns-1", requests={"cpu": "1m"}))
+        builds = kinds.device_manager.row_table_build_counter
+        before = {key[0]: v for key, v in builds.collect().items()}
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            kinds.pre_filter_batch()
+            kinds.pre_filter_batch()
+        events = _profiled(prof, tmp_path)
+        after = {key[0]: v for key, v in builds.collect().items()}
+        assert after == {kind: n + 1 for kind, n in before.items()}
+        handles = _spans(events, "batch_handles")
+        assert len(handles) == 2
+        for kind in ("throttle", "clusterthrottle"):
+            grabs = _spans(events, f"row_table_{kind}")
+            assert len(grabs) == 2
+            for g, h in zip(sorted(grabs), sorted(handles)):
+                assert _inside(g, h), kind
+
     def test_blocked_pods_count_each_kinds_false_verdicts(self, kinds):
         kinds.pre_filter_batch()
         got = {key[0]: v for key, v in kinds.batch_blocked_pods.collect().items()}
@@ -538,6 +568,8 @@ class TestBatchKindSpans:
             assert f'kube_throttler_batch_blocked_pods_total{{kind="{kind}"}}' in text
             assert f'kube_throttler_batch_match_width{{kind="{kind}"}}' in text
         assert 'kube_throttler_batch_route_total{kind="clusterthrottle",route="sparse"} 1' in text
+        for kind in ("throttle", "clusterthrottle"):
+            assert f'kube_throttler_pod_row_table_builds_total{{kind="{kind}"}}' in text
 
     def test_verdicts_are_the_same_with_the_tracer_on_and_off(self, kinds):
         traced = kinds.pre_filter_batch()
