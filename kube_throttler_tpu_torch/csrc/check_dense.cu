@@ -50,8 +50,8 @@
 // instructions, not bytes. Each lane repeats the pod row's loads, address
 // arithmetic and 2 s64 compares per dim for its one column, so one step of
 // 4 rows is several hundred SASS instructions per warp (chip_smoke.py
-// prints the count). Spreading the per-row work over several columns per
-// thread is the next lever (ROADMAP queue 2).
+// prints the count). The next lever is to spread the per-row work over
+// several columns per thread, so one pod row's loads serve each of them.
 
 #include <cstdint>
 #include <cuda_runtime.h>

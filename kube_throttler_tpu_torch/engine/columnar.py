@@ -180,8 +180,8 @@ class ColumnarEventFrame:
     """The columnar batch payload accompanying one dispatched event
     batch: parallel columns (verb/kind codes, keys, rvs, arena slots)
     instead of N object-bearing Events. Batch listeners that prefer
-    flat arrays (the sharding front's router, and — ROADMAP item 3 —
-    the zero-copy IPC rings) read this; everyone else keeps consuming
+    flat arrays (the sharding front's router, and the zero-copy IPC
+    rings of ``sharding/shmring.py``) read this; everyone else keeps consuming
     the Event list. Slots are -1 for non-pod events and for the
     frozen-dict reference store."""
 

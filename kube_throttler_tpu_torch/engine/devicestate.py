@@ -16,7 +16,7 @@ device shapes stay stable under object churn.
 
 Writes arrive synchronously from store watch events (cheap row updates —
 same contract as informer handlers); reads (``check_pod``,
-``check_batch``) are served from device.
+``check_batch_all``) are served from device.
 
 Device tensors are never written in place once published: a row update
 clones the tensor and writes the clone (copy-on-write), so a handle a
@@ -112,6 +112,19 @@ def _next_pow2(n: int, lo: int = 8) -> int:
     while k < n:
         k = _next_rung(k)
     return k
+
+
+def _step3_on_equal(kind: str, on_equal: bool) -> bool:
+    """Step 3's onEqual for a kind's check: a Throttle's step 3 always
+    counts saturation at exactly the threshold as throttled, a
+    ClusterThrottle's follows the caller's ``on_equal``."""
+    return True if kind == "throttle" else on_equal
+
+
+def _batch_route(cols) -> str:
+    """A kind's batch route as ``last_batch_routes``, ``last_tick`` and the
+    ``route`` label name it: sparse with [P,K] cols, else dense."""
+    return "dense" if cols is None else "sparse"
 
 
 def _host_classify_rows(rows, pod_req, pod_present, on_equal, step3_on_equal):
@@ -828,6 +841,20 @@ class _KindState:
         invalidation bookkeeping)."""
         return self._device_cols
 
+    def batch_inputs(self, dense: bool = False):
+        """Under the manager's lock: ``(pods, mask, cols)`` for a batch
+        route. The sparse [P,K] cols are preferred, with mask None (the
+        gather route never reads the [P,T] device mask, so its refresh is
+        skipped); the dense mask, with cols None, only when the cols ladder
+        opted out or ``dense`` forces it."""
+        if not dense:
+            pods, _ = self.device_pods(need_mask=False)
+            cols = self.device_cols()
+            if cols is not None:
+                return pods, None, cols
+        pods, mask = self.device_pods()
+        return pods, mask, None
+
     @staticmethod
     def _strip_sentinel(block: np.ndarray, counts: np.ndarray, K: int) -> np.ndarray:
         """Sparse-row block (sentinel-padded, kcap wide) → the device's
@@ -1317,6 +1344,7 @@ class DeviceStateManager:
         target_scheduler_name: str,
         dims: Optional[DimRegistry] = None,
         device=None,
+        metrics_registry=None,
     ):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -1367,6 +1395,39 @@ class DeviceStateManager:
             for ks in (self.throttle, self.clusterthrottle):
                 ks.arena = arena
                 ks.index.pod_resolver = store.materialize_pod
+        # the families of the breaker's fallbacks, the batch route and the
+        # indexes' row tables, on the owner's registry (none given: nothing
+        # is counted)
+        self.fallback_counter = self.batch_route_counter = None
+        self.batch_width_gauge = self.row_table_build_counter = None
+        if metrics_registry is not None:
+            self.fallback_counter = metrics_registry.counter_vec(
+                "kube_throttler_device_fallback_total",
+                "dispatch failures that opened the device circuit breaker "
+                "(decisions/reconciles served host-side meanwhile)",
+                ["surface"],
+            )
+            self.batch_route_counter = metrics_registry.counter_vec(
+                "kube_throttler_batch_route_total",
+                "check_batch_all calls by throttle kind and the route it took "
+                "(sparse: the gather kernel over [P,K] cols; dense)",
+                ["kind", "route"],
+            )
+            self.batch_width_gauge = metrics_registry.gauge_vec(
+                "kube_throttler_batch_match_width",
+                "the gather route's match width K per throttle kind in the last "
+                "check_batch_all (0: the dense route)",
+                ["kind"],
+            )
+            self.row_table_build_counter = metrics_registry.counter_vec(
+                "kube_throttler_pod_row_table_builds_total",
+                "pod-row tables built per throttle kind: one per pod-set "
+                "version, shared by every batch check and tick until a pod "
+                "key enters or leaves the index",
+                ["kind"],
+            )
+            for ks in (self.throttle, self.clusterthrottle):
+                ks.index.row_table_build_counter = self.row_table_build_counter
         # per-kind aggregate-flush locks: agg_* arrays are touched only
         # under these, so the reconcile's device dispatches never hold the
         # main lock (lock order: agg → main; nothing takes main → agg)
@@ -1405,10 +1466,6 @@ class DeviceStateManager:
         # optional FaultPlan: site "device.dispatch" fails guarded dispatches
         # deterministically (chaos tests drive the breaker through it)
         self.faults = None
-        self.fallback_counter = None  # CounterVec set by the plugin
-        # check_batch_all's route counter and width gauge, set by the plugin
-        self.batch_route_counter = None
-        self.batch_width_gauge = None
         # {kind: ReservedResourceAmounts} wired by the plugin once the
         # controllers exist: lets _on_any_throttle replay standing
         # reservations onto freshly allocated columns (see there)
@@ -1550,7 +1607,7 @@ class DeviceStateManager:
                 R = ks.R
             # pre_filter always passes on_equal=False (plugin.go:153,165);
             # the kind fixes the step-3 variant
-            step3 = kind == "throttle"
+            step3 = _step3_on_equal(kind, False)
             idx = torch.zeros(8, dtype=torch.int32, device=self.device)
             fast_check_pod_packed(
                 packed,
@@ -1560,7 +1617,7 @@ class DeviceStateManager:
             ).cpu()
             n += 1
             with self._lock:
-                state, pods, mask, cols, step3, _ = self._grab_batch_handles(kind, False)
+                state, pods, mask, cols, _ = self._grab_batch_handles(kind)
             _, ok = self._dispatch_batch_check(state, pods, mask, cols, False, step3)
             ok.cpu()
             n += 1
@@ -2499,7 +2556,7 @@ class DeviceStateManager:
                     mask_row = np.zeros((1, ks.tcap), dtype=bool)
                     mask_row[0, : row.shape[0]] = row[: ks.tcap]
 
-                step3 = True if kind == "throttle" else on_equal
+                step3 = _step3_on_equal(kind, on_equal)
                 cols = np.nonzero(mask_row[0])[0]
                 if cols.size == 0:
                     # no affected throttles — nothing to classify; skip the
@@ -2611,7 +2668,7 @@ class DeviceStateManager:
             ks = self.throttle if kind == "throttle" else self.clusterthrottle
             ks.ensure_capacity()
             R, tcap = ks.R, ks.tcap
-            step3 = True if kind == "throttle" else on_equal
+            step3 = _step3_on_equal(kind, on_equal)
             host_route = not self._resolve_single_check_route()
             rows, colss = [], []
             for pod in pod_list:
@@ -2717,33 +2774,16 @@ class DeviceStateManager:
             results.append(res)
         return results
 
-    @property
-    def row_table_build_counter(self):
-        """``kube_throttler_pod_row_table_builds_total{kind}``, set by the
-        plugin: each kind's index counts its row-table builds into it."""
-        return self.throttle.index.row_table_build_counter
-
-    @row_table_build_counter.setter
-    def row_table_build_counter(self, counter) -> None:
-        for ks in (self.throttle, self.clusterthrottle):
-            ks.index.row_table_build_counter = counter
-
-    def _grab_batch_handles(self, kind: str, on_equal: bool):
+    def _grab_batch_handles(self, kind: str):
         """Under the caller's lock: one kind's immutable device handles +
         decode table for a batch check. ``cols`` is the sparse [P,K]
         companion of the mask (None ⇒ dense kernel); the decode table is
         the index's ``PodRowTable``, shared until a pod key enters or
         leaves the index, not a copy per call."""
-        ks = self.throttle if kind == "throttle" else self.clusterthrottle
+        ks = self._kind(kind)
         state = ks.device_state()
-        # the gather path never reads the [P,T] device mask — skip its
-        # refresh; only the dense fallback (cols None) pays for it
-        pods, mask = ks.device_pods(need_mask=False)
-        cols = ks.device_cols()
-        if cols is None:
-            pods, mask = ks.device_pods(need_mask=True)
-        step3 = True if kind == "throttle" else on_equal
-        return state, pods, mask, cols, step3, ks.index.pod_row_table()
+        pods, mask, cols = ks.batch_inputs()
+        return state, pods, mask, cols, ks.index.pod_row_table()
 
     @staticmethod
     def _dispatch_batch_check(state, pods, mask, cols, on_equal, step3):
@@ -2762,19 +2802,6 @@ class DeviceStateManager:
             on_equal=on_equal, step3_on_equal=step3,
         )
         return statuses_to_compact(statuses)
-
-    def check_batch(self, kind: str, on_equal: bool = False):
-        """All stored pods vs all stored throttles (bench / bulk admission).
-        Returns (counts int32[P,4], schedulable bool[P], row→pod-key map).
-        Handle grab under the lock; kernel dispatch outside (see check_pod)."""
-        with self._lock:
-            state, pods, mask, cols, step3, row_map = self._grab_batch_handles(
-                kind, on_equal
-            )
-        counts, schedulable = self._dispatch_batch_check(
-            state, pods, mask, cols, on_equal, step3
-        )
-        return counts, schedulable, row_map
 
     def full_tick_sharded(self, mesh, on_equal: bool = False, now=None,
                           dense_mesh: bool = False):
@@ -2795,7 +2822,7 @@ class DeviceStateManager:
         column sums and a ``check_dense`` launch per slot — runs for
         near-dense masks and under ``dense_mesh=True``.
 
-        Semantics: unlike ``check_batch`` (which classifies against the
+        Semantics: unlike ``check_batch_all`` (which classifies against the
         WRITTEN statuses, exactly what the reference's PreFilter reads —
         plugin.go:148-215), the full tick derives used/thresholds/flags
         from one coherent snapshot: the fused reconcile+PreFilter sweep.
@@ -2841,17 +2868,16 @@ class DeviceStateManager:
             # encode outside the lock: O(T) host work over spec objects
             with self.tracer.trace("tick_encode"):
                 sched = self._tick_encode(snap)
-            step3 = True if kind == "throttle" else on_equal
             with self.tracer.trace("tick_device"):
                 counts, schedulable, used_cnt, used_req, _, _ = self._tick_step(
-                    mesh, snap, sched, now_ns, on_equal, step3
+                    mesh, snap, sched, now_ns, on_equal, _step3_on_equal(kind, on_equal)
                 )
                 out[kind] = (
                     counts.cpu().numpy(), schedulable.cpu().numpy(), snap["row_map"],
                     used_cnt.cpu().numpy(), used_req.cpu().numpy(), snap["col_map"],
                 )
             routes[kind] = {
-                "route": "dense" if snap["cols"] is None else "sparse",
+                "route": _batch_route(snap["cols"]),
                 "overrides": int(sched.ov_valid.shape[1]),
             }
         self.last_tick = routes
@@ -2864,15 +2890,9 @@ class DeviceStateManager:
         the reservation and validity planes, the spec per column, and the
         row/col decode maps (the row map is the index's shared, immutable
         ``PodRowTable``)."""
-        # the sparse [P,K] cols companion is preferred: the tick then needs
-        # no [P,T] tensor at all; ``dense_mesh`` forces the dense program,
-        # and small states whose cols ladder opted out run dense regardless
-        cols = None
-        if not dense_mesh:
-            pods, mask = ks.device_pods(need_mask=False)
-            cols = ks.device_cols()
-        if cols is None:
-            pods, mask = ks.device_pods()
+        # with the sparse [P,K] cols the tick needs no [P,T] tensor at all;
+        # ``dense_mesh`` forces the dense program
+        pods, mask, cols = ks.batch_inputs(dense=dense_mesh)
         specs = [None] * ks.tcap
         for col, thr in ks.index._col_thrs.items():
             specs[col] = thr.spec
@@ -2915,7 +2935,7 @@ class DeviceStateManager:
         args = (sched, snap["pods"], x, snap["counted"], *res, thr_valid, now_ns)
         if snap["cols"] is not None and (mesh.dp, mesh.tp) == (1, 1):
             return full_update_step_gather(*args, on_equal=on_equal, step3_on_equal=step3)
-        route = "dense" if snap["cols"] is None else "gather"
+        route = _batch_route(snap["cols"])
         key = (mesh, on_equal, step3, route)
         step = self._sharded_steps.get(key)
         if step is None:
@@ -2935,26 +2955,24 @@ class DeviceStateManager:
         row_map)}. The lock wait and the grab are traced as
         ``batch_handles``, each kind's launch as ``launch_throttle`` and
         ``launch_clusterthrottle``; each kind's route goes to
-        ``last_batch_routes`` and the plugin's route counter, the gather's
-        width K (0 on the dense route) to the plugin's width gauge."""
+        ``last_batch_routes`` and the route counter, the gather's width K
+        (0 on the dense route) to the width gauge."""
         with self.tracer.trace("batch_handles"), self._lock:
             handles = {
-                kind: self._grab_batch_handles(kind, on_equal)
+                kind: self._grab_batch_handles(kind)
                 for kind in ("throttle", "clusterthrottle")
             }
-        routes = {
-            kind: ("dense" if h[3] is None else "sparse") for kind, h in handles.items()
-        }
+        routes = {kind: _batch_route(h[3]) for kind, h in handles.items()}
         self.last_batch_routes = routes
         if self.batch_route_counter is not None:
             for kind, h in handles.items():
                 self.batch_route_counter.inc({"kind": kind, "route": routes[kind]})
                 self.batch_width_gauge.set({"kind": kind}, 0 if h[3] is None else h[3].shape[1])
         out = {}
-        for kind, (state, pods, mask, cols, step3, row_map) in handles.items():
+        for kind, (state, pods, mask, cols, row_map) in handles.items():
             with self.tracer.trace(f"launch_{kind}"):
                 counts, schedulable = self._dispatch_batch_check(
-                    state, pods, mask, cols, on_equal, step3
+                    state, pods, mask, cols, on_equal, _step3_on_equal(kind, on_equal)
                 )
             out[kind] = (counts, schedulable, row_map)
         return out

@@ -240,8 +240,8 @@ class SelectorIndex:
         # row table built for it (``pod_row_table``)
         self._pod_rows_version = 0
         self._pod_row_table: Optional[PodRowTable] = None
-        # the plugin's kube_throttler_pod_row_table_builds_total (wired
-        # through the device mirror); None outside a plugin
+        # kube_throttler_pod_row_table_builds_total, handed over by the
+        # device mirror that owns the index; None when it has no registry
         self.row_table_build_counter = None
         # row → retained event object (LEGACY/standalone mode only: with a
         # pod_resolver the index retains no objects and the three light

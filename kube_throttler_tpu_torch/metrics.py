@@ -79,7 +79,7 @@ METRIC_NAMES = frozenset(
         "kube_throttler_reflector_gone_total",
         # async status committer (client/transport.py)
         "kube_throttler_remote_status_commit_total",
-        # device-fallback counter (plugin/plugin.py)
+        # device-fallback counter (engine/devicestate.py)
         "kube_throttler_device_fallback_total",
         # phase-latency tracing histogram (utils/tracing.py)
         "kube_throttler_phase_duration_seconds",

@@ -97,6 +97,7 @@ class KubeThrottler:
                 args.name,
                 args.target_scheduler_name,
                 device=resolve_device(device),
+                metrics_registry=self.metrics_registry,
             )
             if use_device
             else None
@@ -154,31 +155,6 @@ class KubeThrottler:
         )
         if self.device_manager is not None:
             self.device_manager.tracer = self.tracer
-            self.device_manager.fallback_counter = self.metrics_registry.counter_vec(
-                "kube_throttler_device_fallback_total",
-                "dispatch failures that opened the device circuit breaker "
-                "(decisions/reconciles served host-side meanwhile)",
-                ["surface"],
-            )
-            self.device_manager.batch_route_counter = self.metrics_registry.counter_vec(
-                "kube_throttler_batch_route_total",
-                "check_batch_all calls by throttle kind and the route it took "
-                "(sparse: the gather kernel over [P,K] cols; dense)",
-                ["kind", "route"],
-            )
-            self.device_manager.batch_width_gauge = self.metrics_registry.gauge_vec(
-                "kube_throttler_batch_match_width",
-                "the gather route's match width K per throttle kind in the last "
-                "check_batch_all (0: the dense route)",
-                ["kind"],
-            )
-            self.device_manager.row_table_build_counter = self.metrics_registry.counter_vec(
-                "kube_throttler_pod_row_table_builds_total",
-                "pod-row tables built per throttle kind: one per pod-set "
-                "version, shared by every batch check and tick until a pod "
-                "key enters or leaves the index",
-                ["kind"],
-            )
             register_breaker_metrics(self.metrics_registry, self.device_manager)
             register_kernel_metrics(self.metrics_registry)
             # reservation replay onto freshly allocated device columns
@@ -531,14 +507,24 @@ class KubeThrottler:
             # host oracle, side-effect-free (no Warning events — triage
             # only, matching the device path)
             for pod in self._list_pods():
-                try:
-                    ta, ti, te, _ = self.throttle_ctr.check_throttled(pod, False)
-                    ca, ci, ce, _ = self.cluster_throttle_ctr.check_throttled(pod, False)
-                except Exception:
+                ok = self._host_verdict(pod)
+                if ok is None:
                     errors.append(pod.key)
-                    continue
-                schedulable[pod.key] = not (ta or ti or te or ca or ci or ce)
+                else:
+                    schedulable[pod.key] = ok
             return {"schedulable": schedulable, "errors": errors}
+
+    def _host_verdict(self, pod: Pod) -> Optional[bool]:
+        """One pod's batch-triage verdict from the host oracle, side-effect
+        free (no Warning events): True when no throttle of either kind is
+        active, insufficient or exceeded for it, None when either
+        controller raises (the pod belongs in ``errors``)."""
+        try:
+            ta, ti, te, _ = self.throttle_ctr.check_throttled(pod, False)
+            ca, ci, ce, _ = self.cluster_throttle_ctr.check_throttled(pod, False)
+        except Exception:
+            return None
+        return not any((ta, ti, te, ca, ci, ce))
 
     def _list_pods(self) -> list:
         """Every pod of the informer's cache, each materialised from the
@@ -613,16 +599,11 @@ class KubeThrottler:
             # no fingerprint ⇒ no arena (shouldn't happen here — the route
             # requires a device manager) or unknown namespace; mirror the
             # key-derived routing of _merge_verdicts
-            if pod.namespace not in known_ns:
+            ok = self._host_verdict(pod) if pod.namespace in known_ns else None
+            if ok is None:
                 errors.append(pod.key)
-                continue
-            try:
-                ta, ti, te, _ = self.throttle_ctr.check_throttled(pod, False)
-                ca, ci, ce, _ = self.cluster_throttle_ctr.check_throttled(pod, False)
-            except Exception:
-                errors.append(pod.key)
-                continue
-            schedulable[pod.key] = not (ta or ti or te or ca or ci or ce)
+            else:
+                schedulable[pod.key] = ok
         self.dedupe_outcomes.inc({"outcome": "served"})
         return {"schedulable": schedulable, "errors": errors}
 
@@ -712,14 +693,12 @@ class KubeThrottler:
         for pod in self._list_pods():
             if not accel_class_of(pod) or pod.key not in schedulable:
                 continue
-            try:
-                ta, ti, te, _ = self.throttle_ctr.check_throttled(pod, False)
-                ca, ci, ce, _ = self.cluster_throttle_ctr.check_throttled(pod, False)
-            except Exception:
+            ok = self._host_verdict(pod)
+            if ok is None:
                 del schedulable[pod.key]
                 errors.append(pod.key)
-                continue
-            schedulable[pod.key] = not (ta or ti or te or ca or ci or ce)
+            else:
+                schedulable[pod.key] = ok
 
     def full_tick_sharded(self, n_devices: Optional[int] = None, shape=None) -> dict:
         """The fused reconcile+PreFilter sweep over a device mesh — the

@@ -406,7 +406,7 @@ class TestDeviceMirrorRegressions:
 
     def test_incremental_device_sync_matches_full_upload(self):
         """device_pods' row-scatter path (single-pod events) must produce
-        the same check_batch results as a freshly-built manager that
+        the same check_batch_all results as a freshly-built manager that
         full-uploads, across interleaved pod churn, label moves, deletes,
         and a throttle edit (which still forces a full mask rebuild)."""
         import random
@@ -456,13 +456,13 @@ class TestDeviceMirrorRegressions:
                     )
                 )
 
-            counts_inc, sched_inc, rows_inc = mgr.check_batch("throttle")
+            counts_inc, sched_inc, rows_inc = mgr.check_batch_all(False)["throttle"]
             # fresh manager rebuilds everything from the same store state;
             # unsubscribe it afterwards or stale managers pile up handlers
             from kube_throttler_tpu_torch.engine.devicestate import DeviceStateManager
 
             fresh = DeviceStateManager(store, "kube-throttler", "my-scheduler", device="cpu")
-            counts_full, sched_full, rows_full = fresh.check_batch("throttle")
+            counts_full, sched_full, rows_full = fresh.check_batch_all(False)["throttle"]
             for kind_name, handler in (
                 ("Namespace", fresh._on_namespace),
                 ("Pod", fresh._on_pod),
@@ -567,7 +567,7 @@ def test_sparse_cols_k_growth_through_dirty_row_path():
     pod = make_pod("p0", labels={"solo": "y"}, requests={"cpu": "200m"},
                    node_name="n1")
     store.create_pod(pod)
-    counts, _, rows = mgr.check_batch("throttle")
+    counts, _, rows = mgr.check_batch_all(False)["throttle"]
     assert int(np.asarray(counts)[rows["default/p0"]].sum()) == 1
     ks = mgr.throttle
     assert ks._cols_host is not None  # sparse path active
@@ -577,12 +577,12 @@ def test_sparse_cols_k_growth_through_dirty_row_path():
     store.update_pod(
         dc_replace(pod, labels={"solo": "y", "grp": "a"})
     )
-    counts, _, rows = mgr.check_batch("throttle")
+    counts, _, rows = mgr.check_batch_all(False)["throttle"]
     assert int(np.asarray(counts)[rows["default/p0"]].sum()) == 9
     assert ks._cols_host is not None and ks._cols_K > k_before  # rung grew
 
     fresh = DeviceStateManager(store, "kube-throttler", "my-scheduler", device="cpu")
-    fcounts, _, frows = fresh.check_batch("throttle")
+    fcounts, _, frows = fresh.check_batch_all(False)["throttle"]
     np.testing.assert_array_equal(
         np.asarray(counts)[rows["default/p0"]],
         np.asarray(fcounts)[frows["default/p0"]],

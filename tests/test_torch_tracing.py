@@ -549,7 +549,32 @@ class TestBatchKindSpans:
         got = {key[0]: v for key, v in kinds.batch_blocked_pods.collect().items()}
         assert got == {kind: 2 * n for kind, n in want.items()}
 
-    def test_route_counter_and_width_gauge(self, kinds):
+    @pytest.mark.parametrize("registry", ["plugin", "none"])
+    def test_route_counter_and_width_gauge(self, kinds, registry):
+        if registry == "none":
+            # a mirror built with no registry runs the batch, registers no
+            # family and counts nothing into the plugin's
+            from kube_throttler_tpu_torch.engine.devicestate import DeviceStateManager
+
+            dm = DeviceStateManager(
+                kinds.store, kinds.args.name, kinds.args.target_scheduler_name,
+                device="cpu",
+            )
+            assert dm.batch_route_counter is None and dm.batch_width_gauge is None
+            assert dm.row_table_build_counter is None
+            assert dm.throttle.index.row_table_build_counter is None
+            assert dm.clusterthrottle.index.row_table_build_counter is None
+            families = (
+                kinds.device_manager.batch_route_counter,
+                kinds.device_manager.batch_width_gauge,
+                kinds.device_manager.row_table_build_counter,
+            )
+            before = [f.collect() for f in families]
+            out = dm.check_batch_all(False)
+            assert set(out) == set(dm.last_batch_routes) == {"throttle", "clusterthrottle"}
+            assert dm.last_batch_routes["clusterthrottle"] == "sparse"
+            assert [f.collect() for f in families] == before
+            return
         kinds.pre_filter_batch()
         dm = kinds.device_manager
         routes = {key: v for key, v in dm.batch_route_counter.collect().items()}
